@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` file compiles with ``nvcc`` into ONE shared library
+Every ``csrc/*.cu`` file compiles with its own ``nvcc``, all started
+together, and one more ``nvcc`` links the objects into ONE shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes). The library lands in ``build/`` at the repository root under a
 name derived from a hash of the sources and flags, so a rebuilt checkout
@@ -33,21 +34,33 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # C entry points: (name, argtypes). Pointer arrays and integer arrays are
 # host buffers read by the C side before it launches.
-_P = ctypes.c_void_p
+_P, _I, _W = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ENTRIES = {
-    "msm_montmul": [_P, _P, ctypes.c_int64, _P, _P],
-    "msm_glv_digits": [_P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, _P],
-    "msm_aff_pair_add": [_P, _P, ctypes.c_int64, _P, _P],
-    "msm_proj_add": [_P, _P, ctypes.c_int64, _P, _P],
-    "msm_proj_double_k": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P],
-    "msm_field_const_words": [],
+    # (ptrs, lds, width, n, [int arguments], [host words], consts, stream)
+    "msm_montmul": [_P, _P, _W, _I, _P, _P],
+    "msm_exp_const": [_P, _P, _W, _I, _P, _P, _P],
+    "msm_glv_digits": [_P, _P, _W, _I, _I, _P, _P],
+    "msm_simple_digits": [_P, _P, _W, _I, _I, _I, _P],
+    "msm_aff_pair_add": [_P, _P, _W, _I, _P, _P],
+    "msm_proj_add": [_P, _P, _W, _I, _P, _P],
+    "msm_proj_double_k": [_P, _P, _W, _I, _I, _P, _P],
+    "msm_ed_pair_add": [_P, _P, _W, _I, _P, _P],
+    "msm_ed_add": [_P, _P, _W, _I, _I, _P, _P],
+    "msm_ed_double_k": [_P, _P, _W, _I, _I, _P, _P],
+    "msm_field_const_words": [_I],
+    "msm_exp_words": [],
     "msm_glv_const_words": [],
 }
+
+# Field shapes the kernels are built for (csrc/field.cuh): limb count n ->
+# 32-bit register words NW. R = 2^(12 n) = 2^(32 NW + tail bits), and values
+# below 4p must fit NW words.
+FIELD_WORDS = {32: 12, 22: 8}
 
 
 @dataclass(frozen=True)
@@ -79,6 +92,18 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; their joined output, or an error naming the
+    first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=CSRC) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
 def _build() -> BuildInfo:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = _digest()
@@ -87,13 +112,14 @@ def _build() -> BuildInfo:
     if lib.exists():
         return BuildInfo(lib, 0.0, log.read_text() if log.exists() else "")
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+    out = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                    for src, obj in zip(_sources(), objs)])
+    out += _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
+    for obj in objs:
+        obj.unlink()
     log.write_text(out)
     os.replace(tmp, lib)  # atomic: a concurrent process never loads a partial file
     return BuildInfo(lib, seconds, out)
@@ -171,21 +197,24 @@ def flags(t, W: int, name: str) -> None:
 
 
 @functools.cache
-def field_words(F, b3_mont: int = 0, b3_small: int = 0) -> ctypes.Array:
-    """FieldConsts words (csrc/field.cuh) for a MontgomeryFp, packed once
-    per field and curve constant and read only by the host. The kernels
-    compute with twelve 32-bit words, which is R = 2^384: the same R as the
-    limb code only for w = 12, n = 32 (BLS12-377's base field)."""
-    if (F.w, F.n) != (12, 32):
+def field_words(F, curve_mont: tuple[int, int] = (0, 0), small: int = 0) -> ctypes.Array:
+    """FieldConsts words (csrc/field.cuh) for a MontgomeryFp, packed once per
+    field and curve constants and read only by the host: p, 2p, R mod p, the
+    two Montgomery-form curve constants, -p^-1 mod 2^32 and one plain-integer
+    curve constant. The kernels compute with the limb code's own R = 2^(12 n)
+    for the field shapes in FIELD_WORDS; other fields are refused."""
+    nw = FIELD_WORDS.get(F.n) if F.w == 12 else None
+    if nw is None or 4 * F.p >= 1 << (32 * nw):
         raise ValueError(
-            f"CUDA field kernels need R = 2^384 (w = 12, n = 32); this field has "
-            f"w = {F.w}, n = {F.n}"
+            "CUDA field kernels take w = 12 limbs with n = 32 (R = 2^384, 4p < 2^384) "
+            f"or n = 22 (R = 2^264, 4p < 2^256); this field has w = {F.w}, n = {F.n}, "
+            f"a {F.p.bit_length()}-bit p (ROADMAP queue 1, item 15: more field shapes)"
         )
     words = []
-    for v in (F.p, 2 * F.p, F.mont_one, b3_mont):
-        words += [(v >> (32 * i)) & 0xFFFFFFFF for i in range(12)]
-    words += [(-pow(F.p, -1, 1 << 32)) % (1 << 32), b3_small]
+    for v in (F.p, 2 * F.p, F.mont_one, *curve_mont):
+        words += [(v >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
+    words += [(-pow(F.p, -1, 1 << 32)) % (1 << 32), small]
     lib, _ = library()
-    if len(words) != lib.msm_field_const_words():
+    if len(words) != lib.msm_field_const_words(F.n):
         raise RuntimeError("FieldConsts layout mismatch between Python and csrc/field.cuh")
     return ints(words, ctypes.c_uint32)

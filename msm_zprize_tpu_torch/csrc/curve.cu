@@ -29,41 +29,16 @@
 #include "field.cuh"
 
 namespace msm {
+namespace wei {
 
-constexpr int MAX_OPS = 12;
-
-// Device pointers and row strides of a launch's operands, in entry order.
-struct Operands {
-  uint64_t p[MAX_OPS];
-  int64_t ld[MAX_OPS];
-};
-
-inline Operands operands_from_host(const uint64_t* ptrs, const int64_t* lds, int n) {
-  Operands ops{};
-  for (int i = 0; i < n; ++i) {
-    ops.p[i] = ptrs[i];
-    ops.ld[i] = lds[i];
-  }
-  return ops;
-}
-
-__device__ __forceinline__ Fe load_reduced(const Operands& ops, int i, int64_t lane,
-                                           const FieldConsts& fc) {
-  return cond_sub(load_fe(reinterpret_cast<const int32_t*>(ops.p[i]), ops.ld[i], lane),
-                  fc.two_p);
-}
-
-__device__ __forceinline__ bool load_flag(const Operands& ops, int i, int64_t lane) {
-  return __ldg(reinterpret_cast<const int32_t*>(ops.p[i]) + lane) != 0;
-}
-
-__device__ __forceinline__ void store_out(const Operands& ops, int i, int64_t lane,
-                                          const Fe& a) {
-  store_fe(a, reinterpret_cast<int32_t*>(ops.p[i]), ops.ld[i], lane);
-}
+// BLS12-377's base field only: the Weierstrass curves of the other field
+// shapes are not ported (ROADMAP queue 1)
+using S = Fp32;
+using Fe = msm::Fe<S>;
+using FieldConsts = msm::FieldConsts<S>;
 
 __device__ __forceinline__ Fe mul_b3(const Fe& a, const FieldConsts& fc) {
-  return f_small(a, fc.b3_small, fc);
+  return f_small(a, fc.small, fc);
 }
 
 // RCB Alg. 7, complete addition, a = 0.
@@ -119,7 +94,7 @@ aff_pair_add_kernel(const __grid_constant__ Operands ops, int64_t W,
   if (lane >= W) return;
   const bool v1 = load_flag(ops, 3, lane), v2 = load_flag(ops, 7, lane);
   const bool s1 = load_flag(ops, 2, lane), s2 = load_flag(ops, 6, lane);
-  const Fe zero = fe_zero(), one = fe_from(fc.one);
+  const Fe zero = fe_zero<S>(), one = fe_from<S>(fc.one);
   // identity (0 : 1 : 0) on invalid lanes, before any arithmetic
   const Fe X1 = fe_select(v1, load_reduced(ops, 0, lane, fc), zero);
   const Fe Y1 = fe_select(v1, f_cneg(load_reduced(ops, 1, lane, fc), s1, fc), one);
@@ -134,7 +109,7 @@ aff_pair_add_kernel(const __grid_constant__ Operands ops, int64_t W,
   const Fe t4 = f_add(fe_select(v2, Y1, zero), fe_select(v1, Y2, zero), fc);
   Fe y3 = f_add(fe_select(v2, X1, zero), fe_select(v1, X2, zero), fc);
   t0 = f_add(f_add(t0, t0, fc), t0, fc);
-  const Fe t2 = fe_select(v1 && v2, fe_from(fc.b3_mont), zero);  // 3b * Z1 * Z2
+  const Fe t2 = fe_select(v1 && v2, fe_from<S>(fc.curve[0]), zero);  // 3b * Z1 * Z2
   const Fe z3 = f_add(t1, t2, fc);
   t1 = f_sub(t1, t2, fc);
   y3 = mul_b3(y3, fc);
@@ -175,29 +150,37 @@ proj_double_k_kernel(const __grid_constant__ Operands ops, int64_t W, int k,
   store_out(ops, 5, lane, Z);
 }
 
+}  // namespace wei
 }  // namespace msm
 
-extern "C" int msm_aff_pair_add(const uint64_t* ptrs, const int64_t* lds, int64_t W,
+// Each entry point takes the field's limb count n and refuses any but 32.
+extern "C" int msm_aff_pair_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, int n,
                                 const uint32_t* consts, void* stream) {
   using namespace msm;
+  using namespace msm::wei;
+  if (n != S::NL) return static_cast<int>(cudaErrorInvalidValue);
   aff_pair_add_kernel<<<grid_for(W), BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      operands_from_host(ptrs, lds, 11), W, field_consts_from_host(consts));
+      operands_from_host(ptrs, lds, 11), W, field_consts_from_host<S>(consts));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int msm_proj_add(const uint64_t* ptrs, const int64_t* lds, int64_t W,
+extern "C" int msm_proj_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, int n,
                             const uint32_t* consts, void* stream) {
   using namespace msm;
+  using namespace msm::wei;
+  if (n != S::NL) return static_cast<int>(cudaErrorInvalidValue);
   proj_add_kernel<<<grid_for(W), BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      operands_from_host(ptrs, lds, 9), W, field_consts_from_host(consts));
+      operands_from_host(ptrs, lds, 9), W, field_consts_from_host<S>(consts));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int msm_proj_double_k(const uint64_t* ptrs, const int64_t* lds, int64_t W,
+extern "C" int msm_proj_double_k(const uint64_t* ptrs, const int64_t* lds, int64_t W, int n,
                                  int k, const uint32_t* consts, void* stream) {
   using namespace msm;
+  using namespace msm::wei;
+  if (n != S::NL) return static_cast<int>(cudaErrorInvalidValue);
   proj_double_k_kernel<<<grid_for(W), BLOCK_THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      operands_from_host(ptrs, lds, 6), W, k, field_consts_from_host(consts));
+      operands_from_host(ptrs, lds, 6), W, k, field_consts_from_host<S>(consts));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
 // K2: GLV decomposition fused with signed c-bit windowing of both halves.
+// K9: signed c-bit windowing alone (no GLV), the twisted-Edwards scalar prep.
 //
 // Replaces msm_zprize_tpu/fields/pallas_scalar.py::glv_digits_pallas (body
 // _scalar_kernel). Per scalar lane s (22 canonical 12-bit limbs of the
@@ -17,6 +18,17 @@
 // limb sizes are compile-time so the products stay in registers. The
 // constants (m_i, v_ij, their signs) come from the Python GlvScalar and
 // the entry point refuses a scalar module whose sizes differ.
+//
+// K9 replaces msm_zprize_tpu/fields/pallas_scalar.py::simple_digits_pallas
+// (body _simple_kernel): per scalar lane, window k takes bits [k c, (k+1) c)
+// of the canonical 12-bit limbs, adds the carry of window k-1, and recodes
+// into a magnitude in [0, 2^(c-1)] and a sign (0 for a zero digit). The
+// same int algorithm as the TPU body and scalar.py::signed_digits, so the
+// planes are bit-identical. At the Edwards 2^16 shape it reads 21 and writes
+// 2 x 23 int32 per lane with no multiplies: memory- and launch-bound. The
+// limb count n is a runtime value (the scalar field's, 21 here), so each
+// window reads its one to three limbs straight from global memory (L1
+// serves the repeats) instead of staging them in registers.
 #include "field.cuh"
 
 namespace msm {
@@ -186,7 +198,50 @@ glv_digits_kernel(const int32_t* __restrict__ s, int64_t lds, int64_t N, int c, 
   digits(a1, g1, c, K, mags, signs, 2 * N, N + lane);
 }
 
+// ---- K9: signed c-bit windows of plain scalars --------------------------------
+__global__ void __launch_bounds__(BLOCK_THREADS)
+simple_digits_kernel(const int32_t* __restrict__ s, int64_t lds, int n, int64_t N, int c,
+                     int K, int32_t* __restrict__ mags, int32_t* __restrict__ signs) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= N) return;
+  const uint32_t half = 1u << (c - 1), full = 1u << c;
+  uint32_t carry = 0;
+  for (int k = 0; k < K; ++k) {
+    const int off = k * c;
+    uint32_t val = 0;
+    int produced = 0;
+    for (int j = off / LIMB_BITS; produced < c && j < n; ++j) {
+      const uint32_t limb = static_cast<uint32_t>(__ldg(s + j * lds + lane));
+      if (produced == 0) {
+        const int sh = off % LIMB_BITS;
+        val = limb >> sh;
+        produced = LIMB_BITS - sh;
+      } else {
+        val |= limb << produced;
+        produced += LIMB_BITS;
+      }
+    }
+    const uint32_t l = (val & (full - 1)) + carry;
+    const bool big = l > half;
+    carry = big ? 1u : 0u;
+    const uint32_t mag = big ? full - l : l;
+    mags[k * N + lane] = static_cast<int32_t>(mag);
+    signs[k * N + lane] = (big && mag != 0) ? 1 : 0;
+  }
+}
+
 }  // namespace msm
+
+// ptrs: {scalars, mags, signs}; lds: {lds}. Outputs are (K, N) int32.
+extern "C" int msm_simple_digits(const uint64_t* ptrs, const int64_t* lds, int64_t N, int n,
+                                 int c, int K, void* stream) {
+  using namespace msm;
+  if (n < 1 || c < 1 || c > 20 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  simple_digits_kernel<<<grid_for(N), BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int32_t*>(ptrs[0]), lds[0], n, N, c, K,
+      reinterpret_cast<int32_t*>(ptrs[1]), reinterpret_cast<int32_t*>(ptrs[2]));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // ptrs: {scalars, mags, signs}; lds: {lds}. Outputs are (K, 2N) int32:
 // GLV half 0 in columns [0, N), half 1 in [N, 2N) (glv_prep's layout).

@@ -115,8 +115,10 @@ def aff_pair_add_plain(W, x1, y1, s1, v1, x2, y2, s2, v2):
 # ---- kernel wrappers -----------------------------------------------------------
 
 
-def _field_rows(W, arrs, batch):
-    n = W.F.n
+def field_rows(F, arrs, batch):
+    """Operands of one batch shape as (n, width) views with unit lane stride
+    (and their row strides), copying only those whose lanes are not adjacent."""
+    n = F.n
     if any(tuple(a.shape[1:]) != tuple(batch) for a in arrs):
         raise ValueError(f"operands differ in batch shape: {[tuple(a.shape) for a in arrs]}")
     # (n, W) views where the batch axes merge with unit lane stride (slices
@@ -128,19 +130,36 @@ def _field_rows(W, arrs, batch):
     return flat, lds, width
 
 
-def _launch(W, name, entry, ins, lds, width, batch, device, extra=()):
-    n = W.F.n
-    words = _build.field_words(W.F, W.b3_mont, W.b3_small)
-    outs = [torch.empty((n, width), dtype=torch.int32, device=device) for _ in range(3)]
+def flag_rows(flags, width):
+    """Per-lane flags as contiguous int32 (width,) vectors."""
+    out = []
+    for i, f in enumerate(flags):
+        f = f.reshape(-1).to(torch.int32).contiguous()
+        _build.flags(f, width, f"flag {i}")
+        out.append(f)
+    return out
+
+
+def launch(F, words, name, entry, ins, lds, width, batch, n_out, extra=()):
+    """Allocate n_out (n, width) outputs, launch ``entry``, count it, and
+    return the outputs in the operands' batch shape."""
+    n = F.n
+    device = ins[0].device
+    outs = [torch.empty((n, width), dtype=torch.int32, device=device) for _ in range(n_out)]
     if width:
         lib, _ = _build.library()
         code = getattr(lib, entry)(
-            _build.ptrs(*ins, *outs), _build.ints(lds + [width] * 3), width, *extra,
+            _build.ptrs(*ins, *outs), _build.ints(lds + [width] * n_out), width, n, *extra,
             words, _build.stream_of(outs[0]),
         )
         _build.check(code, name)
         COUNTS[name] += 1
     return tuple(o.reshape((n,) + tuple(batch)) for o in outs)
+
+
+def _launch(W, name, entry, ins, lds, width, batch, extra=()):
+    words = _build.field_words(W.F, (W.b3_mont, 0), W.b3_small)
+    return launch(W.F, words, name, entry, ins, lds, width, batch, 3, extra)
 
 
 def aff_pair_add(W, x1, y1, s1, v1, x2, y2, s2, v2):
@@ -149,15 +168,11 @@ def aff_pair_add(W, x1, y1, s1, v1, x2, y2, s2, v2):
     if _build.on_cpu(x1, y1, s1, v1, x2, y2, s2, v2):
         return aff_pair_add_plain(W, x1, y1, s1, v1, x2, y2, s2, v2)
     batch = x1.shape[1:]
-    (fx1, fy1, fx2, fy2), lds, width = _field_rows(W, (x1, y1, x2, y2), batch)
-    fl = []
-    for i, f in enumerate((s1, v1, s2, v2)):
-        f = f.reshape(-1).to(torch.int32).contiguous()
-        _build.flags(f, width, f"flag {i}")
-        fl.append(f)
+    (fx1, fy1, fx2, fy2), lds, width = field_rows(W.F, (x1, y1, x2, y2), batch)
+    fl = flag_rows((s1, v1, s2, v2), width)
     ins = (fx1, fy1, fl[0], fl[1], fx2, fy2, fl[2], fl[3])
     lds = [lds[0], lds[1], 0, 0, lds[2], lds[3], 0, 0]
-    return _launch(W, K3, "msm_aff_pair_add", ins, lds, width, batch, x1.device)
+    return _launch(W, K3, "msm_aff_pair_add", ins, lds, width, batch)
 
 
 def proj_add(W, X1, Y1, Z1, X2, Y2, Z2):
@@ -165,8 +180,8 @@ def proj_add(W, X1, Y1, Z1, X2, Y2, Z2):
     if _build.on_cpu(X1, Y1, Z1, X2, Y2, Z2):
         return proj_add_plain(W, X1, Y1, Z1, X2, Y2, Z2)
     batch = X1.shape[1:]
-    ins, lds, width = _field_rows(W, (X1, Y1, Z1, X2, Y2, Z2), batch)
-    return _launch(W, K4, "msm_proj_add", ins, lds, width, batch, X1.device)
+    ins, lds, width = field_rows(W.F, (X1, Y1, Z1, X2, Y2, Z2), batch)
+    return _launch(W, K4, "msm_proj_add", ins, lds, width, batch)
 
 
 def proj_double_k(W, X1, Y1, Z1, k: int):
@@ -176,5 +191,5 @@ def proj_double_k(W, X1, Y1, Z1, k: int):
     if _build.on_cpu(X1, Y1, Z1):
         return proj_double_k_plain(W, X1, Y1, Z1, k)
     batch = X1.shape[1:]
-    ins, lds, width = _field_rows(W, (X1, Y1, Z1), batch)
-    return _launch(W, K5, "msm_proj_double_k", ins, lds, width, batch, X1.device, extra=(k,))
+    ins, lds, width = field_rows(W.F, (X1, Y1, Z1), batch)
+    return _launch(W, K5, "msm_proj_double_k", ins, lds, width, batch, extra=(k,))

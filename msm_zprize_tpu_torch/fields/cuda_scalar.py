@@ -1,9 +1,11 @@
-"""K2 wrapper: GLV decomposition + signed windowing (``csrc/glv_digits.cu``).
+"""K2 and K9 wrappers: scalar digits (``csrc/glv_digits.cu``).
 
-Replaces ``msm_zprize_tpu/fields/pallas_scalar.py::glv_digits_pallas``.
-CUDA tensors launch the kernel; CPU tensors run the plain twin
-``glv_digits_plain`` (``GlvScalar.decompose`` + ``signed_digits``). Both
-return bit-identical digit planes.
+K2 replaces ``msm_zprize_tpu/fields/pallas_scalar.py::glv_digits_pallas``
+(GLV decomposition + signed windowing, the BLS12-377 path); K9 replaces
+``simple_digits_pallas`` (signed windowing alone, the Edwards path). CUDA
+tensors launch the kernels; CPU tensors run the plain twins
+``glv_digits_plain`` (``GlvScalar.decompose`` + ``signed_digits``) and
+``signed_digits``. Kernel and twin return bit-identical digit planes.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ from .. import _build
 from ..counters import COUNTS
 from .scalar import GlvScalar, signed_digits
 
-__all__ = ["glv_digits", "glv_digits_plain"]
+__all__ = ["glv_digits", "glv_digits_plain", "simple_digits"]
 
 KERNEL = "k2_glv_digits"
+K9 = "k9_simple_digits"
 
 
 def glv_digits_plain(S: GlvScalar, scalars: torch.Tensor, c: int, K: int):
@@ -73,4 +76,28 @@ def glv_digits(S: GlvScalar, scalars: torch.Tensor, c: int, K: int):
     )
     _build.check(code, KERNEL)
     COUNTS[KERNEL] += 1
+    return mags, signs
+
+
+def simple_digits(scalars: torch.Tensor, c: int, K: int, w: int = 12):
+    """scalars: (n, N) canonical w-bit limbs. Returns (mags, signs), each
+    (K, N) int32: signed c-bit digits, magnitudes in [0, 2^(c-1)], a zero
+    digit with sign 0."""
+    if _build.on_cpu(scalars):
+        return signed_digits(scalars, c, K, w)
+    if w != 12:
+        raise ValueError("the K9 kernel supports 12-bit limbs only")
+    n, N = scalars.shape
+    lds = [_build.rows(scalars, n, N, "scalars")]
+    mags = torch.empty((K, N), dtype=torch.int32, device=scalars.device)
+    signs = torch.empty_like(mags)
+    if N == 0:
+        return mags, signs
+    lib, _ = _build.library()
+    code = lib.msm_simple_digits(
+        _build.ptrs(scalars, mags, signs), _build.ints(lds), N, n, c, K,
+        _build.stream_of(scalars),
+    )
+    _build.check(code, K9)
+    COUNTS[K9] += 1
     return mags, signs

@@ -1,17 +1,19 @@
 """Vectorized Montgomery field arithmetic over torch int32 limb tensors.
 
 Mirror of ``msm_zprize_tpu/fields/fp.py::MontgomeryFp`` (the JAX conv
-path) for the ops the MSM main path uses. Same layout and invariants:
+path) for the ops the MSM main paths use. Same layout and invariants:
 
 * tensors ``(n, *batch)`` int32, w-bit limbs on axis 0, Montgomery form
-  with R = 2^(n*w) (R = 2^384 for BLS12-377);
+  with R = 2^(n*w) (R = 2^384 for BLS12-377's base field, 2^264 for
+  ed-on-bls12-377's);
 * outputs have canonical limbs and values in [0, 2p); ``sub_positive``
   returns [0, 4p), still a valid multiply input because R > 16p.
 
 Every op here is plain PyTorch and runs on the device of its inputs, except
-``montmul``/``montsquare``, which dispatch through the K1 wrapper
-(``fields/cuda_mul.py``): the CUDA kernel for CUDA tensors, the plain
-``montmul_plain`` below for CPU tensors.
+``montmul``/``montsquare`` and ``exp_const``, which dispatch through the K1
+and K8 wrappers (``fields/cuda_mul.py``): the CUDA kernels for CUDA
+tensors, the plain ``montmul_plain`` and ``exp_const_plain`` below for CPU
+tensors. ``inverse`` and ``batch_inverse`` are built on those two.
 """
 
 from __future__ import annotations
@@ -265,6 +267,90 @@ class MontgomeryFp:
         one = torch.zeros_like(x)
         one[0] = 1
         return self.montmul(x, one)
+
+    # ---- exponentiation / inverse -------------------------------------------
+
+    def exp_const(self, x, e: int):
+        """x^e for a static exponent, Montgomery form: the K8 kernel on CUDA
+        tensors, ``exp_const_plain`` on CPU tensors."""
+        from .cuda_mul import exp_const
+
+        shape = x.shape
+        return exp_const(self, x.reshape(self.n, -1).contiguous(), e).reshape(shape)
+
+    def exp_const_plain(self, x, e: int):
+        """Plain PyTorch x^e, the twin of K8: the JAX package's fixed-window
+        square-and-multiply (a 16-entry table, MSB-first 4-bit windows, the
+        first window taken from the table without squarings), on
+        ``montmul_plain``. Bit-identical to JAX ``exp_const`` off the TPU."""
+        window = 4
+        one = self.ones_mont(*x.shape[1:], device=x.device)
+        if e == 0:
+            return one
+        n_win = -(-e.bit_length() // window)
+        digits = [(e >> (window * i)) & ((1 << window) - 1) for i in range(n_win)][::-1]
+        tbl = [one, x]
+        for _ in range((1 << window) - 2):
+            tbl.append(self.montmul_plain(tbl[-1], x))
+        acc = tbl[digits[0]]
+        for d in digits[1:]:
+            for _ in range(window):
+                acc = self.montmul_plain(acc, acc)
+            acc = self.montmul_plain(acc, tbl[d])
+        return acc
+
+    def inverse(self, x):
+        """x^-1 via Fermat (x^(p-2)); inverse(0) returns 0 (callers mask)."""
+        return self.exp_const(x, self.p - 2)
+
+    def batch_inverse(self, x, rows: int = 8):
+        """Batch inversion over the last batch axis, the JAX package's blocked
+        design: prefix products down ``rows`` rows, a tree over the column
+        totals, ONE Fermat inverse of the grand total (K8 on the card), then
+        the unwind of both. All inputs must be nonzero mod p."""
+        n = self.n
+        if x.dim() != 2:
+            return self.batch_inverse(x.reshape(n, -1), rows).reshape(x.shape)
+        B = x.shape[1]
+        if B <= 4:
+            return self.inverse(x)
+        rows = max(min(rows, B), 1)
+        while B % rows:
+            rows -= 1
+        cols = B // rows
+        xr = x.reshape(n, rows, cols)
+        one = self.ones_mont(cols, device=x.device)
+
+        prefixes = []  # prefix products down the rows
+        acc = one
+        for r in range(rows):
+            acc = self.montmul(acc, xr[:, r])
+            prefixes.append(acc)
+
+        levels = []  # tree over the column totals, kept for the unwind
+        cur = prefixes[-1]
+        while cur.shape[-1] > 1:
+            width = cur.shape[-1]
+            half = width // 2
+            merged = self.montmul(cur[:, :half], cur[:, half : 2 * half])
+            if width % 2:
+                merged = torch.cat([merged, cur[:, -1:]], dim=1)
+            levels.append((cur, half, bool(width % 2)))
+            cur = merged
+
+        inv = self.inverse(cur)  # (n, 1)
+        for level, half, odd in reversed(levels):
+            inv_left = self.montmul(inv[:, :half], level[:, half : 2 * half])
+            inv_right = self.montmul(inv[:, :half], level[:, :half])
+            parts = [inv_left, inv_right] + ([inv[:, half : half + 1]] if odd else [])
+            inv = torch.cat(parts, dim=1)
+
+        # unwind the rows: inv(x_r) = inv(P_r) P_{r-1}; inv(P_{r-1}) = inv(P_r) x_r
+        out = [None] * rows
+        for r in range(rows - 1, -1, -1):
+            out[r] = self.montmul(inv, prefixes[r - 1] if r else one)
+            inv = self.montmul(inv, xr[:, r])
+        return torch.stack(out, dim=1).reshape(n, B)
 
 
 @lru_cache(maxsize=None)

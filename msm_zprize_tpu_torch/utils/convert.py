@@ -11,9 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..curves.edwards import ExtPoints
 from ..curves.weierstrass import AffinePoints
 
-__all__ = ["affine_from_jax", "scalars_from_jax"]
+__all__ = ["affine_from_jax", "ext_from_jax", "scalars_from_jax"]
 
 
 def _limbs(arr, n: int, w: int, name: str) -> np.ndarray:
@@ -35,6 +36,14 @@ def affine_from_jax(x, y, inf, field, device) -> AffinePoints:
     if not np.isin(fl, (0, 1)).all():
         raise ValueError("inf flags must be 0 or 1")
     return AffinePoints(*(torch.as_tensor(np.array(a), device=device) for a in (xs, ys, fl)))
+
+
+def ext_from_jax(X, Y, Z, T, field, device) -> ExtPoints:
+    """JAX ``ExtPoints`` leaves (as numpy) -> the port's ExtPoints."""
+    leaves = [_limbs(a, field.n, field.w, name) for a, name in zip((X, Y, Z, T), "XYZT")]
+    if len({a.shape for a in leaves}) != 1:
+        raise ValueError(f"inconsistent point leaves: {[a.shape for a in leaves]}")
+    return ExtPoints(*(torch.as_tensor(np.array(a), device=device) for a in leaves))
 
 
 def scalars_from_jax(arr, scalar, device) -> torch.Tensor:

@@ -9,8 +9,9 @@ configures JAX:
 Every test carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is False (decided inside the fixture). Widths
 are odd (ragged last block) and some operands are strided slices, which
-the kernels read in place. Tolerance: K2 bit-exact; K1 limb-exact (the
-Montgomery product is one integer); K3-K5 exact mod p.
+the kernels read in place. Tolerance: K2 and K9 bit-exact; K1 limb-exact
+(the Montgomery product is one integer) on both field shapes; K3-K5, K8 and
+K10-K12 exact mod p.
 """
 
 import numpy as np
@@ -18,12 +19,15 @@ import pytest
 import torch
 
 from msm_zprize_tpu_torch.counters import COUNTS
-from msm_zprize_tpu_torch.curves import cuda_curve
-from msm_zprize_tpu_torch.curves.params import BLS12_377
+from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
+from msm_zprize_tpu_torch.curves.params import BLS12_377, ED_ON_BLS12_377
 from msm_zprize_tpu_torch.fields import cuda_mul
-from msm_zprize_tpu_torch.fields.cuda_scalar import glv_digits, glv_digits_plain
-from msm_zprize_tpu_torch.parallel.api import Weierstrass
-from msm_zprize_tpu_torch.testing.points import expected_msm, points_with_logs
+from msm_zprize_tpu_torch.fields.cuda_scalar import glv_digits, glv_digits_plain, simple_digits
+from msm_zprize_tpu_torch.fields.scalar import signed_digits
+from msm_zprize_tpu_torch.parallel.api import TwistedEdwards, Weierstrass
+from msm_zprize_tpu_torch.testing.points import (
+    ed_expected_msm, ed_points_with_logs, expected_msm, points_with_logs,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -45,16 +49,18 @@ def curve():
 
 
 def _elems(dev, rng, width=WIDTH, rows=32):
-    """Random field limbs with value < 2^376 < p."""
+    """Random field limbs with value < 2^376 < p (rows = 32) or < 2^252 < p
+    (rows = 22)."""
     limbs = rng.integers(0, 1 << 12, size=(rows, width), dtype=np.int32)
-    limbs[-1] &= 0xF
+    limbs[-1] &= 0xF if rows == 32 else 0
     return torch.as_tensor(limbs, device=dev)
 
 
 def test_kernels_match_plain_twins(dev, curve):
-    """Each kernel against its twin, then a 2^10 MSM on the card that
-    launches every kernel and equals its known-discrete-log result (one
-    test item: the CPU suite's wall time follows its item count)."""
+    """Each kernel against its twin, then a 2^10 MSM of each curve on the
+    card that launches every kernel of its path and equals its
+    known-discrete-log result (one test item: the CPU suite's wall time
+    follows its item count)."""
     W = curve.ops
     F, S = W.F, curve.scalar
     rng = np.random.default_rng(1)
@@ -97,4 +103,43 @@ def test_kernels_match_plain_twins(dev, curve):
     res = curve.msm(scalars, curve.points_from_ints(pts, dev))
     assert curve.result_to_int(res) == expected_msm(BLS12_377, curve.scalar.unpack(scalars), logs)
     for key in ("k1_montmul", "k2_glv_digits", "k3_aff_pair_add", "k4_proj_add", "k5_proj_double_k"):
+        assert COUNTS[key] > before.get(key, 0), key
+
+    # ed-on-bls12-377: K1 on the 22-limb field, K8, K9, K10-K12 (K11 with
+    # and without a mask, on strided halves of one slot block)
+    ed = TwistedEdwards.create(ED_ON_BLS12_377)
+    E, FE = ed.ops, ed.ops.F
+    x, y = _elems(dev, rng, rows=22), _elems(dev, rng, rows=22)
+    assert torch.equal(cuda_mul.montmul(FE, x, y), FE.montmul_plain(x, y))
+    for e in (0, 1, 5, FE.p - 2):
+        assert torch.equal(FE.fully_reduce(cuda_mul.exp_const(FE, x[:, :64], e)),
+                           FE.fully_reduce(FE.exp_const_plain(x[:, :64], e))), e
+    for c in (6, 11):
+        s = ed.random_scalars(WIDTH, seed=c, device=dev)
+        K = -(-(ed.scalar.bits + 1) // c)
+        got, want = simple_digits(s, c, K), signed_digits(s, c, K, 12)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), c
+    a = [_elems(dev, rng, rows=22) for _ in range(8)]
+    slot = _elems(dev, rng, width=2 * WIDTH, rows=22)
+    m = f[0]
+    pairs = {
+        "K10": (cuda_edwards.ed_pair_add(E, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3]),
+                cuda_edwards.ed_pair_add_plain(E, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3])),
+        "K11": (cuda_edwards.ed_add(E, *a), cuda_edwards.ed_add_plain(E, *a)),
+        "K11 masked strided": (
+            cuda_edwards.ed_add(E, slot[:, :WIDTH], *a[1:4], slot[:, WIDTH:], *a[5:], mask=m),
+            cuda_edwards.ed_add_plain(E, slot[:, :WIDTH], *a[1:4], slot[:, WIDTH:], *a[5:], mask=m)),
+        "K12": (cuda_edwards.ed_double_k(E, *a[:4], 5), cuda_edwards.ed_double_k_plain(E, *a[:4], 5)),
+    }
+    for name, (got, want) in pairs.items():
+        for g, w in zip(got, want):
+            assert torch.equal(FE.fully_reduce(g), FE.fully_reduce(w)), name
+
+    pts, logs = ed_points_with_logs(ED_ON_BLS12_377, N, seed=13)
+    scalars = ed.random_scalars(N, seed=13, device=dev)
+    before = dict(COUNTS)
+    res = ed.msm(scalars, ed.points_from_ints(pts, dev))
+    assert ed.result_to_int(res) == ed_expected_msm(ED_ON_BLS12_377, ed.scalar.unpack(scalars), logs)
+    for key in ("k1_montmul", "k8_exp_const", "k9_simple_digits", "k10_ed_pair_add", "k11_ed_add",
+                "k12_ed_double_k"):
         assert COUNTS[key] > before.get(key, 0), key

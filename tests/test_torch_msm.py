@@ -8,6 +8,7 @@ carry-over is tested too. ``glv_prep`` is held against the JAX ``glv_prep``
 limb for limb. No whole-MSM JAX jit here: its XLA:CPU compile takes minutes.
 """
 
+import ast
 import dataclasses
 import subprocess
 import sys
@@ -101,7 +102,8 @@ def test_glv_prep_matches_jax(curves):
 def test_port_boundaries(curves):
     """The port's curve constants are the JAX package's; the carry-over
     from JAX arrays checks its input; unported modes raise and name the
-    ROADMAP item; importing the port leaves JAX and the JAX package out."""
+    ROADMAP item; importing the port leaves JAX and the JAX package out,
+    and chip_smoke.py imports neither."""
     assert dataclasses.asdict(port_params.BLS12_377) == dataclasses.asdict(BLS12_377)
     port = curves[0]
     x = np.zeros((32, 4), np.int32)
@@ -116,6 +118,12 @@ def test_port_boundaries(curves):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.msm(scalars, points, mode="affine")
 
+    root = Path(__file__).resolve().parents[1]
+    tree = ast.parse((root / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert "msm_zprize_tpu_torch.parallel.api" in names
+    assert not [m for m in names if m.split(".")[0] in ("jax", "msm_zprize_tpu")], names
     code = (
         "import sys, pkgutil, importlib, msm_zprize_tpu_torch as m\n"
         "for info in pkgutil.walk_packages(m.__path__, m.__name__ + '.'):\n"
@@ -123,5 +131,4 @@ def test_port_boundaries(curves):
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "assert 'msm_zprize_tpu' not in sys.modules\n"
     )
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
-                   cwd=Path(__file__).resolve().parents[1])
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
