@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two MSM paths end to end on one GPU: the
-BLS12-377 projective MSM and the ed-on-bls12-377 twisted-Edwards MSM.
+"""Drive the PyTorch/CUDA port's MSM paths end to end on one GPU: the
+BLS12-377 MSM in its three modes and on projective inputs, the
+ed-on-bls12-377 twisted-Edwards MSM in its two modes, and the device
+generator of random points.
 
     python3 chip_smoke.py
 
@@ -10,16 +12,27 @@ non-zero and no result line is printed):
 1. device: the card's name and power limit, and the kernel build
    (one ``nvcc`` per source into ``build/``, with the ptxas register and
    spill lines);
-2. every kernel of both paths against its plain PyTorch twin on the card,
+2. every kernel of every path against its plain PyTorch twin on the card,
    at the shapes the 2^16 MSMs give it (K2 and K9 bit-exact, the others
-   exact mod p), with the CUDA-event time per call of both and the bound:
-   the least time the card could take for the same work;
+   exact mod p, the pass-through lanes of K4m and K7 bit for bit), with the
+   CUDA-event time per call of both and the bound: the least time the card
+   could take for the same work;
 3. BLS12-377: the MSM at N = 8 and its edge cases against two host oracles
    (double-and-add per point, and the known discrete logs);
 4. BLS12-377: the 2^16 MSM against its known-discrete-log result, with the
    launch count of every kernel in that run (each of its path must be > 0);
 5. BLS12-377: 5 warmups and 10 timed 2^16 MSMs with fresh scalars;
-6-8. the same three phases for ed-on-bls12-377 (``TwistedEdwards.msm``).
+6-8. the same three phases for ed-on-bls12-377 (``TwistedEdwards.msm``);
+9. BLS12-377 at 2^16 in the other modes: ``msm(mode="affine")``,
+   ``msm_unsafe(mode="affine")``, ``msm(mode="halving")`` and
+   ``msm_projective`` on the same points with random Z, each against the
+   known-discrete-log result with its launch counts, then 2 warmups and 5
+   timed runs;
+10. ed-on-bls12-377 at 2^16 with ``msm(mode="basic")``, the same way;
+11. ``random_points_fast`` at 2^16 on both curves: every lane on the curve
+    (checked on the card), 256 sampled lanes equal to the host sums of
+    their table picks and in the prime-order subgroup (BLS12-377: q P = 0
+    on the card), and the two modes' MSMs over the points agree; timing.
 
 The second-to-last line is the kernel table as JSON, the last the result.
 Nothing of JAX or of the JAX package is imported: the port stands alone.
@@ -38,6 +51,8 @@ from pathlib import Path
 LOG_N = 16
 SEED = 2026
 WARMUP, RUNS = 5, 10
+MODE_WARMUP, MODE_RUNS = 2, 5  # the modes of phases 9-11
+SAMPLE = 256  # lanes of random_points_fast checked on the host
 REPS, PLAIN_REPS = 20, 3  # back-to-back calls per timing: kernel, plain twin
 
 # The bound's two rates (NVIDIA H100 SXM): device memory 3.35 TB/s (data
@@ -93,6 +108,7 @@ def main() -> None:
     from msm_zprize_tpu_torch import _build, counters
     from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
     from msm_zprize_tpu_torch.curves.params import BLS12_377, ED_ON_BLS12_377
+    from msm_zprize_tpu_torch.curves.weierstrass import AffinePoints, ProjectivePoints
     from msm_zprize_tpu_torch.fields import cuda_mul, cuda_scalar
     from msm_zprize_tpu_torch.fields.scalar import signed_digits
     from msm_zprize_tpu_torch.msm.common import default_windows, window_size
@@ -135,6 +151,9 @@ def main() -> None:
     Ke, Le = default_windows(SE.bits, ce), 1 << (ce - 1)
     Me = slot_count(N, Le)
     lanes1e = (Me // 2) * Ke * Le
+    halving1 = K * ((2 * N + L) // 2 + 1)  # level 1 of the halving engine
+    c0 = max((c - 1) // 2, 1)
+    reduce_w = K * (L >> c0)  # the affine reduction's mixed adds: K x D lanes
     rng = np.random.default_rng(SEED)
 
     def field_elems(G, width):
@@ -146,6 +165,11 @@ def main() -> None:
 
     def flags(width):
         return torch.as_tensor(rng.integers(0, 2, size=width, dtype=np.int32), device=dev)
+
+    def raw_err(got, want):
+        """Max |difference| of the stored limbs (bit-exact pass-through)."""
+        return max((g.long() - w.long()).abs().max().item() if g.numel() else 0
+                   for g, w in zip(got, want))
 
     def mod_p_err(G, got, want):
         """Max |difference| of the limbs of the fully reduced values."""
@@ -163,8 +187,9 @@ def main() -> None:
         print(f"[2 kernel] {kid} {name} {shape}: equal to plain twin (max err {err}); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
         table.append(dict(key=key, name=name, id=kid, route="cuda", source=source,
-                          replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shape=shape))
+                          replaces=replaces, launches=None, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None, shape=shape))
 
     mm12, mm8 = mont_imads(12, False), mont_imads(8, True)
     src = "msm_zprize_tpu_torch/csrc/"
@@ -212,7 +237,56 @@ def main() -> None:
                    f"W={width}", 9 * 32 * 4 * width, 12 * mm12 * width)
     del a4
 
-    c0 = max((c - 1) // 2, 1)
+    # K4m at the halving engine's first level; its masked-off lanes are P1
+    a4 = [field_elems(F, halving1) for _ in range(6)]
+    m4 = flags(halving1)
+    got, want = cuda_curve.proj_add(W, *a4, mask=m4), cuda_curve.proj_add_plain(W, *a4, mask=m4)
+    off = m4 == 0
+    err = max(mod_p_err(F, got, want), raw_err([g[:, off] for g in got], [a[:, off] for a in a4[:3]]))
+    kernel_row("k4m", "proj_add_masked", "K4m", src + "curve.cu",
+               "msm_zprize_tpu/curves/pallas_curve.py:382", err,
+               _cuda_ms(torch, lambda: cuda_curve.proj_add(W, *a4, mask=m4)),
+               _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(W, *a4, mask=m4), PLAIN_REPS),
+               f"W={halving1}, masked", (9 * 32 + 1) * 4 * halving1,
+               12 * mm12 * int(m4.sum().item()))
+    del a4, got, want
+
+    # K6 at the subgroup check's width (phase 11)
+    a6 = [field_elems(F, SAMPLE) for _ in range(3)]
+    kernel_row("k6", "proj_double", "K6", src + "curve.cu",
+               "msm_zprize_tpu/curves/pallas_curve.py:394",
+               mod_p_err(F, cuda_curve.proj_double(W, *a6), cuda_curve.proj_double_plain(W, *a6)),
+               _cuda_ms(torch, lambda: cuda_curve.proj_double(W, *a6)),
+               _cuda_ms(torch, lambda: cuda_curve.proj_double_plain(W, *a6), PLAIN_REPS),
+               f"W={SAMPLE}", 6 * 32 * 4 * SAMPLE, 8 * mm12 * SAMPLE)
+
+    # K7 at the affine reduction's width and at random_points_fast's; lanes
+    # with an infinite affine operand are P1
+    for width in (reduce_w, N):
+        a7 = [field_elems(F, width) for _ in range(5)]
+        i7 = flags(width)
+        got, want = (cuda_curve.proj_add_mixed(W, *a7, i7),
+                     cuda_curve.proj_add_mixed_plain(W, *a7, i7))
+        on = i7 == 1
+        err = max(mod_p_err(F, got, want), raw_err([g[:, on] for g in got], [a[:, on] for a in a7[:3]]))
+        kernel_row("k7", "proj_add_mixed", "K7", src + "curve.cu",
+                   "msm_zprize_tpu/curves/pallas_curve.py:397", err,
+                   _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed(W, *a7, i7)),
+                   _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed_plain(W, *a7, i7), PLAIN_REPS),
+                   f"W={width}", (8 * 32 + 1) * 4 * width, 11 * mm12 * int((~on).sum().item()))
+    del a7, got, want
+
+    # K8 on the 32-limb field: batch_inverse's one Fermat inverse (affine mode,
+    # to_affine)
+    e32 = F.p - 2
+    x1 = field_elems(F, 1)
+    kernel_row("k8_bls", "exp_const_n32", "K8", src + "montmul.cu",
+               "msm_zprize_tpu/fields/pallas_mul.py:237",
+               mod_p_err(F, [cuda_mul.exp_const(F, x1, e32)], [F.exp_const_plain(x1, e32)]),
+               _cuda_ms(torch, lambda: cuda_mul.exp_const(F, x1, e32)),
+               _cuda_ms(torch, lambda: F.exp_const_plain(x1, e32), PLAIN_REPS),
+               f"(32, 1), e = p - 2", 2 * 32 * 4, (e32.bit_length() + bin(e32).count("1")) * mm12)
+
     for width, k in ((K, c0), (1, c)):
         a5 = [field_elems(F, width) for _ in range(3)]
         kernel_row("k5", "proj_double_k", "K5", src + "curve.cu",
@@ -306,6 +380,7 @@ def main() -> None:
         ("ed-on-bls12-377", 6, ed, ED_ON_BLS12_377, ed_points_with_logs, ed_expected_msm,
          ed_naive_msm),
     )
+    known = {}  # label -> (points on the card, discrete logs) of the 2^16 MSMs
     for label, phase, cv, params, with_logs, expected, naive in curves:
         # each case: scalars, indices into 8 known-log points, and the expected
         # result twice: by double-and-add per point, and from the discrete logs
@@ -334,6 +409,7 @@ def main() -> None:
         pts_n, logs = with_logs(params, N, seed=SEED)
         points = cv.points_from_ints(pts_n, dev)
         setup_s = time.perf_counter() - t0
+        known[label] = (points, logs)
         scal = cv.random_scalars(N, seed=SEED + 1, device=dev)
         torch.cuda.synchronize()
         counters.reset()
@@ -369,8 +445,149 @@ def main() -> None:
               f"(median +- sigma of {RUNS} runs after {WARMUP} warmups, fresh scalars) on {card}; "
               f"runs {[round(t, 2) for t in times]}")
 
+    # ---- 9-10. the other modes at 2^16 ---------------------------------------------
+    def launches_of(counts, keys, what):
+        """The run's launches of each kernel of its path; none may be 0."""
+        got = {k: counts.get(k, 0) for k in keys}
+        missing = [k for k, v in got.items() if v == 0]
+        if missing:
+            raise AssertionError(f"{what}: kernels of the path were not launched: {missing}")
+        return got
+
+    def drive(what, run, keys, check):
+        """One run with the counts set to 0 just before it and read just
+        after, its check, then MODE_WARMUP + MODE_RUNS timed runs of the same
+        inputs. Returns the first run's launches."""
+        torch.cuda.synchronize()
+        counters.reset()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = counters.snapshot()
+        check(out)
+        launches = launches_of(counts, keys, what)
+        times = []
+        for i in range(MODE_WARMUP + MODE_RUNS):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            if i >= MODE_WARMUP:
+                times.append((time.perf_counter() - t0) * 1e3)
+        total = sum(v for k, v in counts.items() if k.startswith("k"))
+        print(f"    {what}: first run {first_ms:.1f} ms; {statistics.median(times):.2f} +- "
+              f"{statistics.stdev(times):.2f} ms (median +- sigma of {MODE_RUNS} runs after "
+              f"{MODE_WARMUP} warmups) on {card}; runs {[round(t, 2) for t in times]}; launches "
+              f"{launches} ({total} kernel launches in all); host syncs {counts.get('host_sync', 0)}")
+        return launches
+
+    points, logs = known["bls12-377"]
+    scal = curve.random_scalars(N, seed=SEED + 1, device=dev)
+    want = expected_msm(BLS12_377, curve.scalar.unpack(scal.cpu()), logs)
+
+    def equals_known(what, cv, want_):
+        def check(res):
+            if cv.result_to_int(res) != want_:
+                raise AssertionError(f"{what} disagrees with the known-discrete-log result")
+        return check
+
+    z = field_elems(F, N)  # random Z (< 2^376 < p, nonzero with overwhelming odds)
+    proj = ProjectivePoints(F.montmul(points.x, z), F.montmul(points.y, z), z)
+    glv = (cuda_mul.KERNEL, cuda_scalar.KERNEL)
+    finals = (cuda_curve.K4, cuda_curve.K5)
+    print(f"[9 modes 2^{LOG_N}] bls12-377: each result equals (sum s_i a_i mod q) G")
+    mode_launches = {}
+    for what, run, keys in (
+        ("msm(mode='affine')", lambda: curve.msm(scal, points, mode="affine"),
+         glv + (cuda_mul.K8, cuda_curve.K7) + finals),
+        ("msm_unsafe(mode='affine')", lambda: curve.msm_unsafe(scal, points, mode="affine"),
+         glv + (cuda_mul.K8, cuda_curve.K7) + finals),
+        ("msm(mode='halving')", lambda: curve.msm(scal, points, mode="halving"),
+         glv + (cuda_curve.K4M,) + finals),
+        ("msm_projective (random Z)", lambda: curve.msm_projective(scal, proj),
+         (cuda_scalar.K9,) + finals),
+    ):
+        mode_launches[what] = drive(f"bls12-377 {what}", run, keys,
+                                    equals_known(f"bls12-377 {what}", curve, want))
+    del proj
+
+    points_e, logs_e = known["ed-on-bls12-377"]
+    scal_e = ed.random_scalars(N, seed=SEED + 1, device=dev)
+    want_e = ed_expected_msm(ED_ON_BLS12_377, ed.scalar.unpack(scal_e.cpu()), logs_e)
+    print(f"[10 modes 2^{LOG_N}] ed-on-bls12-377: the result equals (sum s_i a_i mod q) G")
+    drive("ed-on-bls12-377 msm(mode='basic')", lambda: ed.msm(scal_e, points_e, mode="basic"),
+          (cuda_scalar.K9, cuda_edwards.K11, cuda_edwards.K12),
+          equals_known("ed-on-bls12-377 msm(mode='basic')", ed, want_e))
+
+    # ---- 11. random_points_fast -------------------------------------------------------
+    print(f"[11 random points 2^{LOG_N}] random_points_fast on both curves")
+    sample = torch.as_tensor(np.sort(rng.choice(N, SAMPLE, replace=False)))
+    for label, cv, keys in (
+        ("bls12-377", curve, (cuda_curve.K7, cuda_mul.KERNEL, cuda_mul.K8)),
+        ("ed-on-bls12-377", ed, (cuda_edwards.K11, cuda_mul.KERNEL, cuda_mul.K8)),
+    ):
+        is_w = cv is curve
+        rows, picks = cv.random_points_table(N, seed=SEED)
+
+        def check(pts, cv=cv, rows=rows, picks=picks, is_w=is_w, label=label):
+            O = cv.oracle
+            on = cv.ops.affine_is_on_curve(pts) if is_w else cv.ops.is_on_curve(pts)
+            if not bool(on.all()):
+                raise AssertionError(f"{label}: random_points_fast lanes off the curve")
+            sub = type(pts)(*(a.index_select(-1, sample.to(dev)) for a in pts))
+            host = []
+            for i in sample.tolist():
+                acc = O.zero
+                for k, row in enumerate(rows):
+                    acc = O.add(acc, row[int(picks[k, i])])
+                host.append(acc)
+            if is_w:
+                ok = cv.ops.unpack_affine(sub) == host
+            else:
+                got = cv.ops.unpack(sub)
+                ok = all((X * pow(Z, -1, O.p) % O.p, Y * pow(Z, -1, O.p) % O.p) == O.to_affine(h)
+                         for (X, Y, Z, _), h in zip(got, host))
+            if not ok:
+                raise AssertionError(f"{label}: random_points_fast lanes differ from the host sums")
+
+        launches = drive(f"{label} random_points_fast({N})",
+                         lambda cv=cv: cv.random_points_fast(N, seed=SEED, device=dev), keys, check)
+        pts = cv.random_points_fast(N, seed=SEED, device=dev)
+        s2 = cv.random_scalars(N, seed=SEED + 2, device=dev)
+        a, b = (("affine", "projective") if is_w else ("basic", "padded"))
+        if cv.result_to_int(cv.msm(s2, pts, mode=a)) != cv.result_to_int(cv.msm(s2, pts, mode=b)):
+            raise AssertionError(f"{label}: the {a} and {b} MSMs over random points disagree")
+        msg = f"the {a}- and {b}-mode MSMs over them agree"
+        if is_w:
+            mode_launches["random_points_fast"] = launches
+            # q P == 0 on the card for the sampled lanes: 252 K6 doublings
+            sub = AffinePoints(*(t.index_select(-1, sample.to(dev)) for t in pts))
+            counters.reset()
+            qP = W.proj_scale_const(BLS12_377.order, W.from_affine(sub))
+            torch.cuda.synchronize()
+            mode_launches["subgroup check"] = launches_of(
+                counters.snapshot(), (cuda_curve.K6, cuda_curve.K4), "subgroup check")
+            if not bool(F.is_zero(qP.Z).all()):
+                raise AssertionError("random_points_fast lanes outside the prime-order subgroup")
+            msg += (f"; q P = 0 for the {SAMPLE} sampled lanes (launches "
+                    f"{mode_launches['subgroup check']})")
+        print(f"    {label}: every lane on the curve (on the card), {SAMPLE} sampled lanes equal "
+              f"the host sums of their picks; {msg}")
+
+    # the new kernels' launches: per run of the path each serves first
+    for row in table:
+        src_run = {"k4m": ("msm(mode='halving')", cuda_curve.K4M),
+                   "k6": ("subgroup check", cuda_curve.K6),
+                   "k7": ("msm(mode='affine')", cuda_curve.K7),
+                   "k8_bls": ("msm(mode='affine')", cuda_mul.K8)}.get(row["key"])
+        if src_run is not None:
+            row["launches"] = mode_launches[src_run[0]][src_run[1]]
+
     # one entry per kernel and path: its main-path shape's numbers (the first
     # row, the widest), its worst error
+    unset = sorted({row["id"] for row in table if row["launches"] is None})
+    if unset:
+        raise AssertionError(f"no path run counted the launches of {unset}")
     kernels = {}
     for row in table:
         entry = kernels.setdefault(row["key"], {

@@ -47,8 +47,10 @@ _ENTRIES = {
     "msm_glv_digits": [_P, _P, _W, _I, _I, _P, _P],
     "msm_simple_digits": [_P, _P, _W, _I, _I, _I, _P],
     "msm_aff_pair_add": [_P, _P, _W, _I, _P, _P],
-    "msm_proj_add": [_P, _P, _W, _I, _P, _P],
+    "msm_proj_add": [_P, _P, _W, _I, _I, _P, _P],
     "msm_proj_double_k": [_P, _P, _W, _I, _I, _P, _P],
+    "msm_proj_double": [_P, _P, _W, _I, _P, _P],
+    "msm_proj_add_mixed": [_P, _P, _W, _I, _P, _P],
     "msm_ed_pair_add": [_P, _P, _W, _I, _P, _P],
     "msm_ed_add": [_P, _P, _W, _I, _I, _P, _P],
     "msm_ed_double_k": [_P, _P, _W, _I, _I, _P, _P],

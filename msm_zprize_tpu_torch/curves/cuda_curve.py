@@ -1,17 +1,21 @@
-"""K3, K4, K5 wrappers (``csrc/curve.cu``) and their plain PyTorch twins.
+"""K3-K7 wrappers (``csrc/curve.cu``) and their plain PyTorch twins.
 
 Replace the formula bodies of ``msm_zprize_tpu/curves/pallas_curve.py``:
 
-* ``aff_pair_add``  (K3, ``rcb7_unitz``): two signed/valid affine slots ->
+* ``aff_pair_add``   (K3, ``rcb7_unitz``): two signed/valid affine slots ->
   projective sum; invalid lanes act as the identity;
-* ``proj_add``      (K4, ``rcb7``): complete projective addition;
-* ``proj_double_k`` (K5, k x ``rcb9``): k chained complete doublings.
+* ``proj_add``       (K4, ``rcb7``): complete projective addition; with a
+  per-lane ``mask`` (K4m) lanes where mask == 0 return P1's limbs unchanged;
+* ``proj_double_k``  (K5, k x ``rcb9``): k chained complete doublings;
+* ``proj_double``    (K6, ``rcb9``): one complete doubling;
+* ``proj_add_mixed`` (K7, ``rcb8``): projective + affine (x2, y2, inf2);
+  lanes where inf2 is set return P1's limbs unchanged.
 
 CUDA tensors launch the kernels; CPU tensors run the plain twins, which
 follow the JAX package's jnp path (``curves/weierstrass.py``) op for op with
-plain field ops, so the two agree exactly mod p. Field operands are
-``(n, *batch)`` int32 Montgomery limbs of one batch shape; flags are
-``(*batch,)`` integer or bool tensors.
+plain field ops, so the two agree exactly mod p (and bit for bit on the
+pass-through lanes). Field operands are ``(n, *batch)`` int32 Montgomery
+limbs of one batch shape; flags are ``(*batch,)`` integer or bool tensors.
 """
 
 from __future__ import annotations
@@ -22,11 +26,13 @@ from .. import _build
 from ..counters import COUNTS
 
 __all__ = [
-    "aff_pair_add", "proj_add", "proj_double_k",
-    "aff_pair_add_plain", "proj_add_plain", "proj_double_k_plain",
+    "aff_pair_add", "proj_add", "proj_double_k", "proj_double", "proj_add_mixed",
+    "aff_pair_add_plain", "proj_add_plain", "proj_double_k_plain", "proj_double_plain",
+    "proj_add_mixed_plain",
 ]
 
-K3, K4, K5 = "k3_aff_pair_add", "k4_proj_add", "k5_proj_double_k"
+K3, K4, K4M, K5 = "k3_aff_pair_add", "k4_proj_add", "k4m_proj_add_masked", "k5_proj_double_k"
+K6, K7 = "k6_proj_double", "k7_proj_add_mixed"
 
 
 # ---- plain twins (the JAX jnp-path formulas) ---------------------------------
@@ -43,8 +49,14 @@ def _mul_b3(W, x):
     return acc
 
 
-def proj_add_plain(W, X1, Y1, Z1, X2, Y2, Z2):
-    """Renes-Costello-Batina Alg. 7 (a = 0), 12 muls."""
+def _pass_through(keep, out, P1):
+    """out where keep, else P1's own tensors (bit for bit)."""
+    return tuple(torch.where(keep.bool(), o, a) for o, a in zip(out, P1))
+
+
+def proj_add_plain(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
+    """Renes-Costello-Batina Alg. 7 (a = 0), 12 muls; with ``mask``, lanes
+    where mask == 0 return P1."""
     F = W.F
     M, A, S = F.montmul_plain, F.add, F.sub
     t0 = M(X1, X2)
@@ -64,10 +76,34 @@ def proj_add_plain(W, X1, Y1, Z1, X2, Y2, Z2):
     X3 = S(M(t3, t1), M(t4, Y3))
     Y3 = A(M(t1, Z3), M(Y3, t0))
     Z3 = A(M(Z3, t4), M(t0, t3))
+    if mask is not None:
+        return _pass_through(mask, (X3, Y3, Z3), (X1, Y1, Z1))
     return X3, Y3, Z3
 
 
-def _double_plain(W, X1, Y1, Z1):
+def proj_add_mixed_plain(W, X1, Y1, Z1, x2, y2, inf2):
+    """Renes-Costello-Batina Alg. 8 (a = 0, Z2 = 1), 11 muls; lanes where
+    inf2 is set return P1."""
+    F = W.F
+    M, A, S = F.montmul_plain, F.add, F.sub
+    t0 = M(X1, x2)
+    t1 = M(Y1, y2)
+    t3 = M(A(x2, y2), A(X1, Y1))
+    t3 = S(t3, A(t0, t1))
+    t4 = A(M(y2, Z1), Y1)
+    Y3 = A(M(x2, Z1), X1)
+    t0 = A(A(t0, t0), t0)
+    t2 = _mul_b3(W, Z1)
+    Z3 = A(t1, t2)
+    t1 = S(t1, t2)
+    Y3 = _mul_b3(W, Y3)
+    X3 = S(M(t3, t1), M(t4, Y3))
+    Y3 = A(M(t1, Z3), M(Y3, t0))
+    Z3 = A(M(Z3, t4), M(t0, t3))
+    return _pass_through(~inf2.bool(), (X3, Y3, Z3), (X1, Y1, Z1))
+
+
+def proj_double_plain(W, X1, Y1, Z1):
     """Renes-Costello-Batina Alg. 9 (a = 0), 8 muls."""
     F = W.F
     M, A, S = F.montmul_plain, F.add, F.sub
@@ -91,7 +127,7 @@ def _double_plain(W, X1, Y1, Z1):
 def proj_double_k_plain(W, X1, Y1, Z1, k: int):
     P = (X1, Y1, Z1)
     for _ in range(k):
-        P = _double_plain(W, *P)
+        P = proj_double_plain(W, *P)
     return P
 
 
@@ -175,13 +211,39 @@ def aff_pair_add(W, x1, y1, s1, v1, x2, y2, s2, v2):
     return _launch(W, K3, "msm_aff_pair_add", ins, lds, width, batch)
 
 
-def proj_add(W, X1, Y1, Z1, X2, Y2, Z2):
-    """K4: complete projective add of (X1:Y1:Z1) and (X2:Y2:Z2)."""
-    if _build.on_cpu(X1, Y1, Z1, X2, Y2, Z2):
-        return proj_add_plain(W, X1, Y1, Z1, X2, Y2, Z2)
+def proj_add(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
+    """K4: complete projective add of (X1:Y1:Z1) and (X2:Y2:Z2); with
+    ``mask`` (K4m), lanes where mask == 0 return (X1, Y1, Z1) bit for bit."""
+    ops = (X1, Y1, Z1, X2, Y2, Z2)
+    if _build.on_cpu(*ops, *(() if mask is None else (mask,))):
+        return proj_add_plain(W, *ops, mask=mask)
     batch = X1.shape[1:]
-    ins, lds, width = field_rows(W.F, (X1, Y1, Z1, X2, Y2, Z2), batch)
-    return _launch(W, K4, "msm_proj_add", ins, lds, width, batch)
+    ins, lds, width = field_rows(W.F, ops, batch)
+    if mask is not None:
+        ins = ins + flag_rows((mask,), width)
+        lds = lds + [0]
+    return _launch(W, K4 if mask is None else K4M, "msm_proj_add", ins, lds, width, batch,
+                   extra=(int(mask is not None),))
+
+
+def proj_double(W, X1, Y1, Z1):
+    """K6: one complete doubling."""
+    if _build.on_cpu(X1, Y1, Z1):
+        return proj_double_plain(W, X1, Y1, Z1)
+    batch = X1.shape[1:]
+    ins, lds, width = field_rows(W.F, (X1, Y1, Z1), batch)
+    return _launch(W, K6, "msm_proj_double", ins, lds, width, batch)
+
+
+def proj_add_mixed(W, X1, Y1, Z1, x2, y2, inf2):
+    """K7: (X1:Y1:Z1) + the affine point (x2, y2), or P1 bit for bit where
+    inf2 is set (the affine operand is infinity)."""
+    if _build.on_cpu(X1, Y1, Z1, x2, y2, inf2):
+        return proj_add_mixed_plain(W, X1, Y1, Z1, x2, y2, inf2)
+    batch = X1.shape[1:]
+    ins, lds, width = field_rows(W.F, (X1, Y1, Z1, x2, y2), batch)
+    ins = ins + flag_rows((inf2,), width)
+    return _launch(W, K7, "msm_proj_add_mixed", ins, lds + [0], width, batch)
 
 
 def proj_double_k(W, X1, Y1, Z1, k: int):

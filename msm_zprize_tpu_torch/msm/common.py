@@ -1,16 +1,22 @@
-"""Shared MSM machinery: window sizing, bucket sort and bucket counts.
+"""Shared MSM machinery: window sizing, bucket sort, bucket counts and the
+halving engine's pair layout.
 
-Mirror of ``msm_zprize_tpu/msm/common.py`` for the padded engine. The
-window table is the JAX package's, kept for parity in the first slice;
-counts are a scatter-add histogram (the JAX compare-reduce formulation is a
-TPU workaround).
+Mirror of ``msm_zprize_tpu/msm/common.py``. The window table is the JAX
+package's, kept for parity; counts are a scatter-add histogram (the JAX
+compare-reduce formulation is a TPU workaround). ``halving_layout`` derives
+each halving level's pair positions from the bucket counts with run-length
+fills (scatter-min/max, then a cumulative min/max along the row), as the
+JAX package does, so the layouts are bit-identical.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["window_size", "default_windows", "sort_by_bucket", "bucket_counts"]
+__all__ = ["window_size", "default_windows", "sort_by_bucket", "bucket_counts", "halving_layout"]
+
+I32 = torch.int32
+INT32_MAX = 2**31 - 1
 
 
 def window_size(curve_kind: str, log_n: int) -> int:
@@ -46,3 +52,54 @@ def bucket_counts(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
     n_out = n_buckets + 1
     counts = torch.zeros((K, n_out), dtype=torch.int32, device=ids.device)
     return counts.scatter_add_(1, ids.long(), torch.ones_like(ids, dtype=torch.int32))
+
+
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x, dim=-1, dtype=I32)
+
+
+def _fill_runs(vals, starts, width: int, kind: str):
+    """Run-length fill: output slot s of row k gets vals[k, b] where b is the
+    bucket owning slot s, b = max{l : starts[k, l] <= s}.
+
+    Scatters vals at their run starts and completes the row with a
+    cumulative min ("min") or max ("max"); valid when vals are
+    non-increasing ("min") or non-decreasing ("max") in l, so that the
+    owner's value is the extremum among colliding run starts (an empty run
+    shares its start with its successor)."""
+    K = vals.shape[0]
+    pos = torch.clamp(starts, max=width - 1).long()
+    fill, reduce = (INT32_MAX, "amin") if kind == "min" else (-1, "amax")
+    vals = torch.where(starts < width, vals, fill)
+    grid = torch.full((K, width), fill, dtype=I32, device=vals.device)
+    grid.scatter_reduce_(1, pos, vals, reduce, include_self=True)
+    return (torch.cummin if kind == "min" else torch.cummax)(grid, dim=1).values
+
+
+def halving_layout(counts, width: int, cur_width: int):
+    """Pair positions for one compacted halving level.
+
+    counts: (K, L) per-bucket element counts over the current level's packed
+    rows (bucket b occupies [cur_off[b], cur_off[b] + counts[b])); width:
+    static output width (>= max sum of ceil(counts / 2)); cur_width: the
+    current level's width. Slot s of the next level holds the pair sum of
+    current positions (pos0, pos0 + 1) of its owning bucket:
+
+        pos0[s] = cur_off[b] + 2 (s - next_off[b]) = 2 s + adj[b],
+                  adj = cur_off - 2 next_off        (non-increasing: min-fill)
+        partner = pos0 + 1 < end[b], end = cur_off + counts
+                                                    (non-decreasing: max-fill)
+
+    Returns (pos0, has_partner, valid, next_counts), (K, width) each but
+    next_counts (K, L); int32 positions, bool masks."""
+    next_counts = (counts + 1) >> 1  # ceil(c / 2)
+    next_off = _cumsum(next_counts) - next_counts
+    cur_off = _cumsum(counts) - counts
+    totals = next_off[:, -1] + next_counts[:, -1]
+    slots = torch.arange(width, dtype=I32, device=counts.device)[None, :]
+    adj = _fill_runs(cur_off - 2 * next_off, next_off, width, "min")
+    end = _fill_runs(cur_off + counts, next_off, width, "max")
+    pos0 = 2 * slots + adj
+    valid = slots < totals[:, None]
+    has_partner = (pos0 + 1 < end) & valid
+    return torch.clamp(pos0, 0, cur_width - 1), has_partner, valid, next_counts

@@ -1,13 +1,15 @@
-"""Padded-bucket Pippenger engine: accumulation, log-depth reduction, Horner.
+"""Pippenger engines: bucket accumulation, bucket reduction, Horner.
 
-Mirror of the main-path functions of ``msm_zprize_tpu/msm/engine.py``
-(``slot_count``, ``accumulate_buckets_padded``, ``reduce_buckets_log``,
-``horner``), generic over a point-ops adapter exactly as there, so an
+Mirror of ``msm_zprize_tpu/msm/engine.py``: the padded-bucket engine
+(``slot_count``, ``accumulate_buckets_padded``), the halving engine
+(``accumulate_buckets``), both bucket reductions (``reduce_buckets``, the
+sequential one fed by affine buckets; ``reduce_buckets_log``) and
+``horner``, generic over a point-ops adapter exactly as there, so an
 integer model can stand in for curve points in tests. JAX control flow
 becomes Python control flow: ``lax.while_loop``/``lax.cond`` read their
 conditions on the host (each read is one ``host_sync`` count),
-``lax.scan`` over window chunks is a loop. The constants tuned on the TPU
-(slot budget 8M, T = 2048, MR = 32) are kept for parity.
+``lax.scan`` is a loop. The constants tuned on the TPU (slot budget 8M,
+T = 2048, MR = 32) are kept for parity.
 
 Point leaves are tuples of tensors shaped ``(rows.., batch..)``: curve
 coordinates ``(n, W)``, integer models ``(W,)``; the engine only slices
@@ -21,11 +23,14 @@ import math
 import torch
 
 from ..counters import COUNTS
-from .common import bucket_counts, sort_by_bucket
+from .common import bucket_counts, halving_layout, sort_by_bucket
 
 __all__ = [
     "slot_count",
+    "select",
+    "accumulate_buckets",
     "accumulate_buckets_padded",
+    "reduce_buckets",
     "reduce_buckets_log",
     "horner",
 ]
@@ -68,6 +73,97 @@ def _stack(pts):
 def _unstack(arr, splits):
     """Leaves back from the stacked rows (views, no copies)."""
     return tuple(arr[lo:hi] if ndim == 2 else arr[lo] for lo, hi, ndim in splits)
+
+
+def _as(pt_type, leaves):
+    """Leaves as a point of pt_type (a NamedTuple, or a plain tuple)."""
+    return tuple(leaves) if pt_type is tuple else pt_type(*leaves)
+
+
+def select(mask, a, b):
+    """Per-lane select between two point pytrees of one type: a where mask."""
+    return _as(type(a), (torch.where(mask, fa, fb) for fa, fb in zip(a, b)))
+
+
+def accumulate_buckets(points, digits, signs, L: int, pair_add, prepare, zero_like):
+    """Accumulate signed points into per-window buckets by pair halving.
+
+    points: point pytree with leaves (.., B), the base points.
+    digits, signs: (K, B) int32 magnitudes in [0, L] (0 = skip) and flags.
+    pair_add(P0, P1, has_partner, valid) -> points: adds the lanes where
+        has_partner, passes P0 through elsewhere.
+    prepare(P, flag): conditional negation plus any change of
+        representation, applied once after the first gather (so the gather
+        moves the narrowest form).
+    zero_like(K, L): (K, L)-batched identity points.
+
+    One sort per window orders the points by bucket; each level then pairs
+    neighbours within a bucket (``halving_layout``) over all windows at once,
+    so each level is one wide pair add. Widths follow the JAX schedule: a
+    prefix of exact, shrinking widths, then a plateau at 2L that repeats
+    until no bucket holds more than one element (a host check per level,
+    bounded by ceil(log2 B) levels in all). Returns (bucket sums with leaves
+    (.., K, L), ``empty`` (K, L) bool)."""
+    K, B = digits.shape
+    device = digits.device
+    ids = torch.where(digits == 0, L, digits - 1).to(I32)
+    iota = torch.arange(B, dtype=I32, device=device)[None, :].expand(K, B)
+    order, sorted_ids = sort_by_bucket(ids, iota)
+    counts = bucket_counts(sorted_ids, L)[:, :L]  # (K, L), sentinel dropped
+    rows = torch.arange(K, dtype=I32, device=device)[:, None]
+
+    # the first level: every point leaf stacked into one (R, B) tensor, so
+    # the reorder is ONE gather; signs are per window (flat index + row)
+    stacked, splits = _stack(tuple(points))
+    g = stacked.index_select(-1, order.reshape(-1))  # (R, K*B)
+    sorted_signs = signs.to(I32).reshape(-1).index_select(0, (order + rows * B).reshape(-1))
+    P = prepare(_as(type(points), _unstack(g, splits)), sorted_signs)
+    pt_type = type(P)
+    P, splits = _stack(tuple(P))  # leaves may have changed shape or count
+
+    def one_level(P, cur_counts, width: int, next_width: int):
+        pos0, has_partner, valid, next_counts = halving_layout(cur_counts, next_width, width)
+        flat0 = (pos0 + rows * width).reshape(-1)
+        flat1 = (torch.clamp(pos0 + 1, max=width - 1) + rows * width).reshape(-1)
+        out = pair_add(
+            _as(pt_type, _unstack(P.index_select(-1, flat0), splits)),
+            _as(pt_type, _unstack(P.index_select(-1, flat1), splits)),
+            has_partner.reshape(-1),
+            valid.reshape(-1),
+        )
+        return _stack(tuple(out))[0], next_counts
+
+    # ceil(log2 B) levels bring every count to <= 1 in the worst case (all
+    # points in one bucket); the exact-width prefix shrinks geometrically
+    # toward plateau_w = 2L, the smallest w with (w + L) // 2 + 1 <= w
+    n_levels = max((B - 1).bit_length(), 0)
+    plateau_w = 2 * L
+    widths = [B]
+    need = B
+    while True:
+        need = (need + L) // 2 + 1
+        if need >= widths[-1] or widths[-1] <= plateau_w:
+            break
+        widths.append(max(need, plateau_w))
+    n_prefix = len(widths) - 1
+
+    width, cur_counts = B, counts
+    for level in range(n_prefix):
+        P, cur_counts = one_level(P, cur_counts, widths[level], widths[level + 1])
+        width = widths[level + 1]
+    # the plateau exits on data; the static level bound guards it
+    it = 0
+    while it < n_levels - n_prefix and _host((cur_counts > 1).any()):
+        P, cur_counts = one_level(P, cur_counts, width, width)
+        it += 1
+
+    # bucket b's sum (count <= 1) sits at its offset
+    offsets = torch.cumsum(cur_counts, dim=-1, dtype=I32) - cur_counts
+    idx = (torch.clamp(offsets, 0, width - 1) + rows * width).reshape(-1)
+    sums = _unstack(P.index_select(-1, idx), splits)
+    sums = _as(pt_type, (a.reshape(a.shape[:-1] + (K, L)) for a in sums))
+    empty = cur_counts == 0
+    return select(empty, zero_like(K, L), sums), empty
 
 
 def accumulate_buckets_padded(
@@ -296,6 +392,62 @@ def accumulate_buckets_padded(
     return tuple(torch.cat(parts, dim=-2)[..., :K, :] for parts in zip(*outs))
 
 
+def _blocks(L: int, c0: int):
+    """(c0, block, D): the bucket row L (a power of two) split into D blocks
+    of 2^c0 buckets, c0 lowered until the block divides L."""
+    if L & (L - 1):
+        raise ValueError("bucket count must be a power of two")
+    block = 1 << c0
+    while L % block != 0:
+        block //= 2
+        c0 -= 1
+    return c0, block, L // block
+
+
+def reduce_buckets(bucket_sums, empty, c0: int, acc_ops):
+    """Per-window weighted bucket reduction S_k = sum_l (l+1) B[k, l], the
+    sequential form, for bucket sums that are not accumulators (affine
+    buckets: acc_ops.add_point is the mixed add, K7).
+
+    Split L = D * 2^c0; per block, the triangle T_d = sum_j (j+1) B[d, j] and
+    the row R_d = sum_j B[d, j] come from one 2^c0-step suffix loop over
+    (K*D)-wide lanes; then S = sum_d T_d + 2^c0 sum_d d R_d, the weighted
+    rows from a (D-1)-step suffix loop. acc_ops provides zero(*batch),
+    add_point(acc, bucket, nonempty), add(a, b) and double_k(a, k).
+    Returns accumulator leaves (.., K)."""
+    pt_type = type(bucket_sums)
+    K, L = bucket_sums[0].shape[-2:]
+    c0, block, D = _blocks(L, c0)
+    bs = pt_type(*(a.reshape(a.shape[:-1] + (D, block)) for a in bucket_sums))
+    emp = empty.reshape(K, D, block)
+
+    running, total = acc_ops.zero(K, D), acc_ops.zero(K, D)
+    for j in range(block - 1, -1, -1):  # running += B_j; total += running
+        running = acc_ops.add_point(running, pt_type(*(a[..., j] for a in bs)), ~emp[..., j])
+        total = acc_ops.add(total, running)
+    # total[d] = T_d, running[d] = R_d
+
+    acc_type = type(running)
+    if D > 1:  # sum_d d R_d by a suffix loop over d = D-1 .. 1
+        wr, racc = acc_ops.zero(K), acc_ops.zero(K)
+        for d in range(D - 1, 0, -1):
+            racc = acc_ops.add(racc, acc_type(*(a[..., d] for a in running)))
+            wr = acc_ops.add(wr, racc)
+        wr = type(wr)(*(a[..., None] for a in wr))  # (.., K, 1)
+    else:
+        wr = acc_ops.zero(K, 1)
+    tot, n = total, D  # sum_d T_d: a log tree over D (a power of two)
+    while n > 1:
+        half = n // 2
+        tot = acc_ops.add(type(tot)(*(a[..., :half] for a in tot)),
+                          type(tot)(*(a[..., half:] for a in tot)))
+        n = half
+    if c0 > 0:
+        wr = acc_ops.double_k(wr, c0)
+    S = acc_ops.add(tot, wr)  # (.., K, 1)
+    return type(S)(*(a[..., 0] for a in S))
+
+
 def reduce_buckets_log(bucket_sums, c0: int, acc_ops):
     """Per-window weighted bucket reduction S_k = sum_l (l+1) B[k, l] in log
     depth, for accumulator-form bucket sums (leaves (rows.., K, L), L a power
@@ -309,13 +461,7 @@ def reduce_buckets_log(bucket_sums, c0: int, acc_ops):
     acc_ops provides zero(*batch) -> leaves, add(a, b) and double_k(a, k)."""
     pt_type = type(bucket_sums)
     K, L = bucket_sums[0].shape[-2:]
-    if L & (L - 1):
-        raise ValueError("bucket count must be a power of two")
-    block = 1 << c0
-    while L % block != 0:
-        block //= 2
-        c0 -= 1
-    D = L // block
+    c0, block, D = _blocks(L, c0)
     bs = pt_type(*(a.reshape(a.shape[:-1] + (D, block)) for a in bucket_sums))
 
     def shift_add(x, step):

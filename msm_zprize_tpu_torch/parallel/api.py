@@ -1,26 +1,30 @@
 """Top-level curve API: ``Weierstrass`` and ``TwistedEdwards``.
 
 Mirror of ``msm_zprize_tpu/parallel/api.py::Weierstrass`` and
-``TwistedEdwards`` (create, int I/O, padding, msm, msm_unsafe, msm_bigint,
-random_scalars). Every entry point that makes tensors puts them on the card
-(``device="cuda"``) unless the caller names another device, such as
-``"cpu"`` for the plain PyTorch twins; ``msm`` runs on the device of its
-inputs. The ported modes are ``"projective"`` (Weierstrass) and
-``"padded"`` (twisted Edwards). ``random_points_fast`` is ROADMAP queue 1,
-item 7.
+``TwistedEdwards`` (create, int I/O, padding, msm, msm_unsafe,
+msm_projective, msm_bigint, random_scalars, random_points_fast). Every
+entry point that makes tensors puts them on the card (``device="cuda"``)
+unless the caller names another device, such as ``"cpu"`` for the plain
+PyTorch twins; ``msm`` runs on the device of its inputs. Modes: Weierstrass
+``"projective"`` (the default), ``"affine"`` and ``"halving"``; twisted
+Edwards ``"padded"`` (the default) and ``"basic"``.
 """
 
 from __future__ import annotations
 
+import random
+
 import numpy as np
 import torch
 
+from ..bigint.edwards import EdwardsCurve
+from ..bigint.weierstrass import AffineCurve
 from ..curves.edwards import EdwardsOps, ExtPoints
 from ..curves.params import EdwardsParams, WeierstrassParams
 from ..curves.weierstrass import AffinePoints, ProjectivePoints, WeierstrassOps
 from ..fields.limbs import random_uniform_limbs
 from ..fields.scalar import SimpleScalar, make_glv_scalar
-from ..msm.basic import msm_basic_edwards
+from ..msm.basic import msm_basic_edwards, msm_basic_projective
 from ..msm.batched_affine import msm_batched_affine
 
 __all__ = ["Weierstrass", "TwistedEdwards"]
@@ -33,6 +37,35 @@ def _random_scalars(q: int, scalar, N: int, seed: int, device) -> torch.Tensor:
     ``random_scalars`` for the same seed."""
     rng = np.random.default_rng(seed)
     return torch.as_tensor(random_uniform_limbs(rng, q, N, scalar.scheme), device=device)
+
+
+def _table_and_picks(oracle, N: int, seed: int, entropy_bits: int, c: int):
+    """The host half of ``random_points_fast``: K = ceil(entropy_bits / c)
+    random bases (drawn as the JAX package draws them, from
+    ``random.Random(seed ^ 0x9E3779B9)``), row k = [0, B_k, 2 B_k, ...,
+    (2^c - 1) B_k], and the (K, N) pick of each output point in each row
+    from a ``torch.Generator`` seeded with ``seed``."""
+    rng = random.Random(seed ^ 0x9E3779B9)
+    K, Lt = -(-entropy_bits // c), 1 << c
+    rows = []
+    for _ in range(K):
+        base = oracle.random(rng)
+        row = [oracle.zero]
+        for _ in range(1, Lt):
+            row.append(oracle.add(row[-1], base))
+        rows.append(row)
+    picks = torch.randint(0, Lt, (K, N), generator=torch.Generator().manual_seed(seed),
+                          dtype=torch.int64)
+    return rows, picks
+
+
+def _gather_picks(table, picks):
+    """Each table leaf (.., K * 2^c) gathered at the flat picks -> (.., K, N),
+    one index vector for all leaves."""
+    K, N = picks.shape
+    Lt = table[0].shape[-1] // K
+    flat = (picks + torch.arange(K)[:, None] * Lt).reshape(-1).to(table[0].device)
+    return [a.index_select(-1, flat).reshape(a.shape[:-1] + (K, N)) for a in table]
 
 
 def _pad_target(N: int) -> int:
@@ -52,6 +85,8 @@ class Weierstrass:
         self.params = params
         self.ops = WeierstrassOps(params, w)
         self.scalar = make_glv_scalar(params.order, params.lambda_, w)
+        self.simple_scalar = SimpleScalar(params.order, w)
+        self.oracle = AffineCurve(params)
         self.label = params.label
 
     @classmethod
@@ -94,15 +129,26 @@ class Weierstrass:
     def msm(self, scalars, points: AffinePoints, c: int | None = None,
             mode: str = "projective") -> ProjectivePoints:
         """Safe MSM (duplicate points allowed): scalars (n, N) limbs, points
-        an affine batch of N, on one device."""
+        an affine batch of N, on one device. mode: "projective" (the
+        default), "affine" (batched-affine adds) or "halving"."""
         scalars, points = self._pad(scalars, points)
         return msm_batched_affine(self.ops, self.scalar, scalars, points, c, mode=mode)
 
     def msm_unsafe(self, scalars, points: AffinePoints, c: int | None = None,
                    mode: str = "projective") -> ProjectivePoints:
-        """The msmUnsafe entry point. Projective adds are complete, so it
-        is the safe path."""
-        return self.msm(scalars, points, c, mode)
+        """The msmUnsafe entry point: assumes all effective points distinct,
+        which only the affine mode exploits (its adds then skip the doubling
+        and cancellation masks); the complete adds of the other modes make
+        it the safe path."""
+        scalars, points = self._pad(scalars, points)
+        return msm_batched_affine(self.ops, self.scalar, scalars, points, c, safe=False,
+                                  mode=mode)
+
+    def msm_projective(self, scalars, points: ProjectivePoints,
+                       c: int | None = None) -> ProjectivePoints:
+        """MSM on projective inputs (no GLV, the halving engine on complete
+        adds): scalars (n, N) limbs, points a projective batch of N."""
+        return msm_basic_projective(self.ops, scalars, points, self.simple_scalar.bits, c)
 
     def msm_bigint(self, scalars, points, device=DEVICE, c: int | None = None):
         """Python ints in, affine int point out."""
@@ -114,6 +160,32 @@ class Weierstrass:
         """Uniform scalars in [0, q): the JAX package's limbs for the seed."""
         return _random_scalars(self.params.order, self.scalar, N, seed, device)
 
+    def random_points_table(self, N: int, seed: int = 0, entropy_bits: int = 64, c: int = 8):
+        """The host half of ``random_points_fast``: (rows, picks), output
+        point i being the sum over k of rows[k][picks[k, i]] (affine int
+        tuples, None = infinity)."""
+        return _table_and_picks(self.oracle, N, seed, entropy_bits, c)
+
+    def random_points_fast(self, N: int, seed: int = 0, entropy_bits: int = 64, c: int = 8,
+                           device=DEVICE) -> AffinePoints:
+        """Fast non-hiding random points in the prime-order subgroup: each is
+        the sum of one pick from each of K = ceil(entropy_bits / c) tables of
+        2^c multiples of a random base. The tables are built on the host
+        (``random_points_table``); the device does one gather per
+        coordinate, K - 1 mixed adds (K7) and one batch normalization
+        (``to_affine``: K1 and one K8).
+
+        The bases equal the JAX package's for the same seed; the picks come
+        from a ``torch.Generator``, not JAX's threefry stream, so the points
+        differ from the JAX package's."""
+        rows, picks = self.random_points_table(N, seed, entropy_bits, c)
+        W = self.ops
+        x, y, inf = _gather_picks(W.pack_affine([P for row in rows for P in row], device), picks)
+        acc = W.from_affine(AffinePoints(x[:, 0], y[:, 0], inf[0]))
+        for k in range(1, picks.shape[0]):
+            acc = W.proj_add_affine(acc, AffinePoints(x[:, k], y[:, k], inf[k]))
+        return W.to_affine(acc)
+
 
 class TwistedEdwards:
     """Curve module for a twisted-Edwards curve (a = -1)."""
@@ -124,6 +196,7 @@ class TwistedEdwards:
         self.params = params
         self.ops = EdwardsOps(params, w)
         self.scalar = SimpleScalar(params.order, w)
+        self.oracle = EdwardsCurve(params)
         self.label = params.label
 
     @classmethod
@@ -167,7 +240,8 @@ class TwistedEdwards:
     def msm(self, scalars, points: ExtPoints, c: int | None = None,
             mode: str = "padded") -> ExtPoints:
         """MSM (duplicate points allowed): scalars (n, N) limbs, points an
-        extended batch of N, on one device."""
+        extended batch of N, on one device. mode: "padded" (the default) or
+        "basic" (the halving engine)."""
         scalars, points = self._pad(scalars, points)
         return msm_basic_edwards(self.ops, scalars, points, self.scalar.bits, c, mode=mode)
 
@@ -186,3 +260,25 @@ class TwistedEdwards:
     def random_scalars(self, N: int, seed: int = 0, device=DEVICE) -> torch.Tensor:
         """Uniform scalars in [0, q): the JAX package's limbs for the seed."""
         return _random_scalars(self.params.order, self.scalar, N, seed, device)
+
+    def random_points_table(self, N: int, seed: int = 0, entropy_bits: int = 64, c: int = 8):
+        """The host half of ``random_points_fast``: (rows, picks), output
+        point i being the sum over k of rows[k][picks[k, i]] (extended int
+        tuples)."""
+        return _table_and_picks(self.oracle, N, seed, entropy_bits, c)
+
+    def random_points_fast(self, N: int, seed: int = 0, entropy_bits: int = 64, c: int = 8,
+                           device=DEVICE) -> ExtPoints:
+        """Fast non-hiding random points in the prime-order subgroup, as
+        ``Weierstrass.random_points_fast``: host tables, then on the device
+        one gather per coordinate, K - 1 unified adds (K11) and
+        ``batch_normalize`` (K1 and one K8). The bases equal the JAX
+        package's for the same seed; the picks come from a
+        ``torch.Generator``, so the points differ from the JAX package's."""
+        rows, picks = self.random_points_table(N, seed, entropy_bits, c)
+        E = self.ops
+        picked = _gather_picks(E.pack([P for row in rows for P in row], device), picks)
+        acc = ExtPoints(*(a[:, 0] for a in picked))
+        for k in range(1, picks.shape[0]):
+            acc = E.add(acc, ExtPoints(*(a[:, k] for a in picked)))
+        return E.batch_normalize(acc)

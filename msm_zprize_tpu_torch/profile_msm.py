@@ -1,18 +1,23 @@
 """Profile one MSM path of the port on the card.
 
-    python3 -m msm_zprize_tpu_torch.profile_msm [--curve ed-on-bls12-377] [--log-n 16]
+    python3 -m msm_zprize_tpu_torch.profile_msm [--curve ed-on-bls12-377] [--log-n 16] [--path PATH]
 
-Prints, each number beside the card's name and power limit as
-``nvidia-smi`` reports them:
+PATH is the curve's default MSM mode (``projective`` or ``padded``, the
+default), another mode (``affine``, ``unsafe``, ``halving``; ``basic``),
+``msm_projective`` (BLS12-377, the same points with random Z) or
+``random_points`` (``random_points_fast``, host table included). Prints,
+each number beside the card's name and power limit as ``nvidia-smi``
+reports them:
 
-* the MSM's host-clock time (median +- sigma of 20 runs after 5 warmups,
+* the path's host-clock time (median +- sigma of 20 runs after 5 warmups,
   fresh scalars, each ending in ``torch.cuda.synchronize()``);
-* the device-busy share over 3 profiled MSMs: the union of the kernel
+* the device-busy share over 3 profiled runs: the union of the kernel
   intervals ``torch.profiler`` records on the card over the wall time of
-  the window, and the device time per MSM by kernel (launches, total);
-* stage walls, each stage synchronised before and after (median of 10):
-  prep (digits, and the Edwards normalization or the GLV endomorphism),
-  accumulation (its prep included), bucket reduction, Horner;
+  the window, and the device time per run by kernel (launches, total);
+* for the default modes, stage walls, each stage synchronised before and
+  after (median of 10): prep (digits, and the Edwards normalization or the
+  GLV endomorphism), accumulation (its prep included), bucket reduction,
+  Horner;
 * the serial chains: the device time per launch of K8 (the Fermat
   inverse on one lane) and of the K5 / K12 doubling chains, from the same
   trace.
@@ -23,6 +28,7 @@ Needs a CUDA device; refuses to run without one.
 from __future__ import annotations
 
 import argparse
+import random
 import statistics
 import subprocess
 import time
@@ -32,6 +38,7 @@ import torch
 
 from .counters import COUNTS
 from .curves.params import BLS12_377, ED_ON_BLS12_377
+from .curves.weierstrass import ProjectivePoints
 from .msm import basic, batched_affine, engine
 from .msm.common import window_size
 from .parallel.api import TwistedEdwards, Weierstrass
@@ -80,6 +87,9 @@ def main(argv=None) -> None:
     ap.add_argument("--curve", default="ed-on-bls12-377", choices=["ed-on-bls12-377", "bls12-377"])
     ap.add_argument("--log-n", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2026)
+    ap.add_argument("--path", default=None, choices=[
+        "projective", "affine", "unsafe", "halving", "msm_projective", "padded", "basic",
+        "random_points"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_msm: needs a CUDA device")
@@ -95,13 +105,27 @@ def main(argv=None) -> None:
         pts, _ = ed_points_with_logs(ED_ON_BLS12_377, N, seed=args.seed)
     points = cv.points_from_ints(pts, dev)
     batches = [cv.random_scalars(N, seed=args.seed + 1 + i, device=dev) for i in range(25)]
-    head = f"{args.curve} 2^{args.log_n} on {card}"
+    default = "projective" if args.curve == "bls12-377" else "padded"
+    path = args.path or default
+    if path == "unsafe":
+        run = lambda s: cv.msm_unsafe(s, points, mode="affine")
+    elif path == "msm_projective":
+        F = cv.ops.F
+        rng = random.Random(args.seed)
+        z = torch.as_tensor(F.pack([rng.randrange(1, F.p) for _ in range(N)]), device=dev)
+        proj = ProjectivePoints(F.montmul(points.x, z), F.montmul(points.y, z), z)
+        run = lambda s: cv.msm_projective(s, proj)
+    elif path == "random_points":
+        run = lambda s: cv.random_points_fast(N, seed=args.seed, device=dev)
+    else:
+        run = lambda s: cv.msm(s, points, mode=path)
+    head = f"{args.curve} {path} 2^{args.log_n} on {card}"
 
     times = []
     for i, s in enumerate(batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cv.msm(s, points)
+        run(s)
         torch.cuda.synchronize()
         if i >= 5:
             times.append((time.perf_counter() - t0) * 1e3)
@@ -116,7 +140,7 @@ def main(argv=None) -> None:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for s in batches[:runs]:
-            cv.msm(s, points)
+            run(s)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -128,13 +152,16 @@ def main(argv=None) -> None:
     by_name = defaultdict(list)
     for e in kernels:
         by_name[e.name.split("(")[0][:60]].append(e.time_range.end - e.time_range.start)
-    print(f"[busy] {head}: device busy {busy_us / 1e3 / runs:.3f} ms per MSM of "
+    print(f"[busy] {head}: device busy {busy_us / 1e3 / runs:.3f} ms per run of "
           f"{wall_ms / runs:.3f} ms wall under the profiler: busy share "
-          f"{busy_us / 1e3 / wall_ms:.3f}; launches per MSM of the port's kernels "
-          f"{ {k: v // runs for k, v in COUNTS.items() if k.startswith('k')} }")
+          f"{busy_us / 1e3 / wall_ms:.3f}; launches per run of the port's kernels "
+          f"{ {k: v // runs for k, v in COUNTS.items() if k.startswith('k')} }; host syncs "
+          f"{COUNTS.get('host_sync', 0) // runs}; {len(kernels) // runs} device kernels in all")
     for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:14]:
-        print(f"    {sum(durs) / 1e3 / runs:9.3f} ms per MSM  {len(durs) // runs:4d} launches  "
+        print(f"    {sum(durs) / 1e3 / runs:9.3f} ms per run  {len(durs) // runs:4d} launches  "
               f"max {max(durs) / 1e3:.4f} ms  {name}")
+    if path != default:
+        return
 
     walls = _stages(args.curve, cv, batches[0], points, args.log_n)
     print(f"[stages] {head}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in walls.items())

@@ -15,37 +15,21 @@ and one scalar multiplication checks an MSM of any size exactly. All points
 are multiples of G, so they lie in its prime-order subgroup (as the
 complete RCB doubling requires, and with no square root to take on the
 Edwards curve). Randomness comes from ``numpy.random.default_rng(seed)``.
-Not public API: the device generator is a later slice.
+The device generator of random points is ``random_points_fast``
+(``parallel/api.py``); these points are for checks by discrete log.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..bigint.weierstrass import AffineCurve
 from ..curves.params import EdwardsParams, WeierstrassParams
 
 __all__ = [
     "points_with_logs", "expected_msm", "naive_msm",
     "ed_add", "ed_points_with_logs", "ed_expected_msm", "ed_naive_msm",
 ]
-
-
-def _affine_add(P, Q, p: int):
-    """Short-Weierstrass (a = 0) affine addition (None = identity) with the
-    built-in modular inverse."""
-    if P is None:
-        return Q
-    if Q is None:
-        return P
-    (x1, y1), (x2, y2) = P, Q
-    if x1 == x2:
-        if (y1 + y2) % p == 0:
-            return None
-        m = 3 * x1 * x1 * pow(2 * y1, -1, p) % p
-    else:
-        m = (y2 - y1) * pow(x2 - x1, -1, p) % p
-    x3 = (m * m - x1 - x2) % p
-    return x3, (m * (x1 - x3) - y1) % p
 
 
 def ed_add(params: EdwardsParams, P, Q):
@@ -88,7 +72,7 @@ def _walk(add, zero, G, q: int, N: int, seed: int, c: int):
 
 
 def _weierstrass_add(params):
-    return lambda P, Q: _affine_add(P, Q, params.modulus)
+    return AffineCurve(params).add
 
 
 def _edwards_add(params):

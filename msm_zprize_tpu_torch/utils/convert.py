@@ -12,9 +12,9 @@ import numpy as np
 import torch
 
 from ..curves.edwards import ExtPoints
-from ..curves.weierstrass import AffinePoints
+from ..curves.weierstrass import AffinePoints, ProjectivePoints
 
-__all__ = ["affine_from_jax", "ext_from_jax", "scalars_from_jax"]
+__all__ = ["affine_from_jax", "proj_from_jax", "ext_from_jax", "scalars_from_jax"]
 
 
 def _limbs(arr, n: int, w: int, name: str) -> np.ndarray:
@@ -38,12 +38,22 @@ def affine_from_jax(x, y, inf, field, device) -> AffinePoints:
     return AffinePoints(*(torch.as_tensor(np.array(a), device=device) for a in (xs, ys, fl)))
 
 
-def ext_from_jax(X, Y, Z, T, field, device) -> ExtPoints:
-    """JAX ``ExtPoints`` leaves (as numpy) -> the port's ExtPoints."""
-    leaves = [_limbs(a, field.n, field.w, name) for a, name in zip((X, Y, Z, T), "XYZT")]
+def _coords(arrs, names: str, field, device) -> list[torch.Tensor]:
+    """Coordinate leaves of one shape, checked, on the device."""
+    leaves = [_limbs(a, field.n, field.w, name) for a, name in zip(arrs, names)]
     if len({a.shape for a in leaves}) != 1:
         raise ValueError(f"inconsistent point leaves: {[a.shape for a in leaves]}")
-    return ExtPoints(*(torch.as_tensor(np.array(a), device=device) for a in leaves))
+    return [torch.as_tensor(np.array(a), device=device) for a in leaves]
+
+
+def proj_from_jax(X, Y, Z, field, device) -> ProjectivePoints:
+    """JAX ``ProjectivePoints`` leaves (as numpy) -> the port's ProjectivePoints."""
+    return ProjectivePoints(*_coords((X, Y, Z), "XYZ", field, device))
+
+
+def ext_from_jax(X, Y, Z, T, field, device) -> ExtPoints:
+    """JAX ``ExtPoints`` leaves (as numpy) -> the port's ExtPoints."""
+    return ExtPoints(*_coords((X, Y, Z, T), "XYZT", field, device))
 
 
 def scalars_from_jax(arr, scalar, device) -> torch.Tensor:

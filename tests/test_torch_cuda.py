@@ -10,8 +10,9 @@ Every test carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is False (decided inside the fixture). Widths
 are odd (ragged last block) and some operands are strided slices, which
 the kernels read in place. Tolerance: K2 and K9 bit-exact; K1 limb-exact
-(the Montgomery product is one integer) on both field shapes; K3-K5, K8 and
-K10-K12 exact mod p.
+(the Montgomery product is one integer) on both field shapes; K3-K8 and
+K10-K12 exact mod p, and the pass-through lanes of K4m and K7 bit for bit;
+the halving layout on int32 CUDA tensors bit-exact against the CPU.
 """
 
 import numpy as np
@@ -21,9 +22,11 @@ import torch
 from msm_zprize_tpu_torch.counters import COUNTS
 from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
 from msm_zprize_tpu_torch.curves.params import BLS12_377, ED_ON_BLS12_377
+from msm_zprize_tpu_torch.curves.weierstrass import ProjectivePoints
 from msm_zprize_tpu_torch.fields import cuda_mul
 from msm_zprize_tpu_torch.fields.cuda_scalar import glv_digits, glv_digits_plain, simple_digits
 from msm_zprize_tpu_torch.fields.scalar import signed_digits
+from msm_zprize_tpu_torch.msm.common import halving_layout
 from msm_zprize_tpu_torch.parallel.api import TwistedEdwards, Weierstrass
 from msm_zprize_tpu_torch.testing.points import (
     ed_expected_msm, ed_points_with_logs, expected_msm, points_with_logs,
@@ -57,10 +60,10 @@ def _elems(dev, rng, width=WIDTH, rows=32):
 
 
 def test_kernels_match_plain_twins(dev, curve):
-    """Each kernel against its twin, then a 2^10 MSM of each curve on the
-    card that launches every kernel of its path and equals its
-    known-discrete-log result (one test item: the CPU suite's wall time
-    follows its item count)."""
+    """Each kernel against its twin, then a 2^10 MSM of each curve and each
+    mode on the card that launches every kernel of its path and equals its
+    known-discrete-log result, and random_points_fast on both curves (one
+    test item: the CPU suite's wall time follows its item count)."""
     W = curve.ops
     F, S = W.F, curve.scalar
     rng = np.random.default_rng(1)
@@ -92,18 +95,55 @@ def test_kernels_match_plain_twins(dev, curve):
         "K3": (cuda_curve.aff_pair_add(W, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3]),
                cuda_curve.aff_pair_add_plain(W, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3])),
     }
+    # K4m, K6, K7; K4m on strided halves, its masked-off lanes and K7's
+    # infinity lanes bit for bit P1
+    m, inf = f[0], f[1]
+    pairs.update({
+        "K4m strided": (cuda_curve.proj_add(W, slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:], mask=m),
+                        cuda_curve.proj_add_plain(W, slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:],
+                                                  mask=m)),
+        "K6": (cuda_curve.proj_double(W, *a[:3]), cuda_curve.proj_double_plain(W, *a[:3])),
+        "K7": (cuda_curve.proj_add_mixed(W, *a[:5], inf), cuda_curve.proj_add_mixed_plain(W, *a[:5], inf)),
+    })
     for name, (got, want) in pairs.items():
         for g, w in zip(got, want):
             assert torch.equal(F.fully_reduce(g), F.fully_reduce(w)), name
+    for name, keep, p1 in (("K4m strided", m == 0, (slot[:, :WIDTH], *a[1:3])), ("K7", inf == 1, a[:3])):
+        for g, x in zip(pairs[name][0], p1):
+            assert torch.equal(g[:, keep], x[:, keep]), name
+
+    # the halving layout's scatter-min/max and cumulative min/max on int32
+    counts = torch.as_tensor(rng.integers(0, 9, size=(3, 64), dtype=np.int32))
+    for width, cur in ((400, 512), (128, 400)):
+        got = halving_layout(counts.to(dev), width, cur)
+        want = halving_layout(counts, width, cur)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), width
 
     N = 1 << 10
     pts, logs = points_with_logs(BLS12_377, N, seed=12)
     scalars = curve.random_scalars(N, seed=12, device=dev)
-    before = dict(COUNTS)
-    res = curve.msm(scalars, curve.points_from_ints(pts, dev))
-    assert curve.result_to_int(res) == expected_msm(BLS12_377, curve.scalar.unpack(scalars), logs)
-    for key in ("k1_montmul", "k2_glv_digits", "k3_aff_pair_add", "k4_proj_add", "k5_proj_double_k"):
-        assert COUNTS[key] > before.get(key, 0), key
+    points = curve.points_from_ints(pts, dev)
+    want = expected_msm(BLS12_377, curve.scalar.unpack(scalars), logs)
+    z = _elems(dev, rng, width=N)  # random Z: msm_projective on the same points
+    proj = ProjectivePoints(F.montmul(points.x, z), F.montmul(points.y, z), z)
+    runs = {
+        "projective": (lambda: curve.msm(scalars, points),
+                       ("k1_montmul", "k2_glv_digits", "k3_aff_pair_add", "k4_proj_add", "k5_proj_double_k")),
+        "affine": (lambda: curve.msm(scalars, points, mode="affine"),
+                   ("k1_montmul", "k2_glv_digits", "k8_exp_const", "k7_proj_add_mixed", "k4_proj_add")),
+        "unsafe": (lambda: curve.msm_unsafe(scalars, points, mode="affine"), ("k7_proj_add_mixed",)),
+        "halving": (lambda: curve.msm(scalars, points, mode="halving"),
+                    ("k2_glv_digits", "k4m_proj_add_masked", "k4_proj_add", "k5_proj_double_k")),
+        "msm_projective": (lambda: curve.msm_projective(scalars, proj),
+                           ("k9_simple_digits", "k4_proj_add", "k5_proj_double_k")),
+    }
+    for name, (run, keys) in runs.items():
+        before = dict(COUNTS)
+        assert curve.result_to_int(run()) == want, name
+        for key in keys:
+            assert COUNTS[key] > before.get(key, 0), (name, key)
+    rp = curve.random_points_fast(N, seed=3, device=dev)
+    assert bool(W.affine_is_on_curve(rp).all())
 
     # ed-on-bls12-377: K1 on the 22-limb field, K8, K9, K10-K12 (K11 with
     # and without a mask, on strided halves of one slot block)
@@ -138,8 +178,12 @@ def test_kernels_match_plain_twins(dev, curve):
     pts, logs = ed_points_with_logs(ED_ON_BLS12_377, N, seed=13)
     scalars = ed.random_scalars(N, seed=13, device=dev)
     before = dict(COUNTS)
-    res = ed.msm(scalars, ed.points_from_ints(pts, dev))
-    assert ed.result_to_int(res) == ed_expected_msm(ED_ON_BLS12_377, ed.scalar.unpack(scalars), logs)
+    points = ed.points_from_ints(pts, dev)
+    res = ed.msm(scalars, points)
+    want = ed_expected_msm(ED_ON_BLS12_377, ed.scalar.unpack(scalars), logs)
+    assert ed.result_to_int(res) == want
     for key in ("k1_montmul", "k8_exp_const", "k9_simple_digits", "k10_ed_pair_add", "k11_ed_add",
                 "k12_ed_double_k"):
         assert COUNTS[key] > before.get(key, 0), key
+    assert ed.result_to_int(ed.msm(scalars, points, mode="basic")) == want
+    assert bool(E.is_on_curve(ed.random_points_fast(N, seed=3, device=dev)).all())

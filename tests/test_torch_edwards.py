@@ -277,8 +277,8 @@ EDGE_CASES = {  # scalars and indices into three known points
 @pytest.mark.parametrize("case", list(EDGE_CASES))
 def test_edwards_msm_edge_cases(ed_curves, case):
     """The JAX package's MSM edge cases through msm_bigint against the
-    oracle (all zero scalars give the identity (0, 1)); the unported
-    halving mode raises and names its ROADMAP item."""
+    oracle (all zero scalars give the identity (0, 1), in the halving mode
+    too); an unknown mode raises."""
     port, _ = ed_curves
     pts, _ = ed_points_with_logs(port_params.ED_ON_BLS12_377, 3, seed=5)
     scs, idx = EDGE_CASES[case]
@@ -287,5 +287,7 @@ def test_edwards_msm_edge_cases(ed_curves, case):
     assert got == _oracle(scs, points) == ed_naive_msm(port_params.ED_ON_BLS12_377, scs, points)
     if case == "zero_scalars":
         assert got == (0, 1)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port.msm(port.scalars_from_ints(scs, "cpu"), port.points_from_ints(points, "cpu"), mode="basic")
+        args = (port.scalars_from_ints(scs, "cpu"), port.points_from_ints(points, "cpu"))
+        assert port.result_to_int(port.msm(*args, mode="basic")) == (0, 1)
+        with pytest.raises(ValueError, match="mode"):
+            port.msm(*args, mode="halving")

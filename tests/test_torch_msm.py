@@ -101,9 +101,10 @@ def test_glv_prep_matches_jax(curves):
 
 def test_port_boundaries(curves):
     """The port's curve constants are the JAX package's; the carry-over
-    from JAX arrays checks its input; unported modes raise and name the
-    ROADMAP item; importing the port leaves JAX and the JAX package out,
-    and chip_smoke.py imports neither."""
+    from JAX arrays checks its input; unported modes (the codec storage
+    modes) raise and name the ROADMAP item, unknown ones raise; importing
+    the port leaves JAX and the JAX package out, and chip_smoke.py imports
+    neither."""
     assert dataclasses.asdict(port_params.BLS12_377) == dataclasses.asdict(BLS12_377)
     port = curves[0]
     x = np.zeros((32, 4), np.int32)
@@ -116,7 +117,9 @@ def test_port_boundaries(curves):
 
     _, _, _, points, scalars = _inputs(curves, 8, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.msm(scalars, points, mode="affine")
+        port.msm(scalars, points, mode="fma51")
+    with pytest.raises(ValueError, match="mode"):
+        port.msm(scalars, points, mode="basic")
 
     root = Path(__file__).resolve().parents[1]
     tree = ast.parse((root / "chip_smoke.py").read_text())
