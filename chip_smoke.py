@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's MSM paths end to end on one GPU: the
-BLS12-377 MSM in its three modes and on projective inputs, the
-ed-on-bls12-377 twisted-Edwards MSM in its two modes, and the device
-generator of random points.
+BLS12-377 MSM in its four modes (the codec storage mode "packed" among
+them) and on projective inputs, the ed-on-bls12-377 twisted-Edwards MSM in
+its two modes, the device generator of random points, and ``compute_msm``.
 
     python3 chip_smoke.py
 
@@ -32,7 +32,13 @@ non-zero and no result line is printed):
 11. ``random_points_fast`` at 2^16 on both curves: every lane on the curve
     (checked on the card), 256 sampled lanes equal to the host sums of
     their table picks and in the prime-order subgroup (BLS12-377: q P = 0
-    on the card), and the two modes' MSMs over the points agree; timing.
+    on the card), and the two modes' MSMs over the points agree; timing;
+12. BLS12-377 at 2^16 on the codec storage mode: ``msm(mode="packed")`` and
+    ``msm_unsafe(mode="packed")`` on the points of phase 4 (coordinates in
+    13 rows of 31 bits; K13 and the K14 variants of K3-K5, no K1), each
+    against the known-discrete-log result with its launch counts, 2 warmups
+    and 5 timed runs beside the default mode's; then ``compute_msm`` on int
+    inputs, without and with a duplicated point, against the host oracle.
 
 The second-to-last line is the kernel table as JSON, the last the result.
 Nothing of JAX or of the JAX package is imported: the port stands alone.
@@ -53,6 +59,7 @@ SEED = 2026
 WARMUP, RUNS = 5, 10
 MODE_WARMUP, MODE_RUNS = 2, 5  # the modes of phases 9-11
 SAMPLE = 256  # lanes of random_points_fast checked on the host
+SMALL = 4096  # width of the K14 variants that no codec-mode path runs
 REPS, PLAIN_REPS = 20, 3  # back-to-back calls per timing: kernel, plain twin
 
 # The bound's two rates (NVIDIA H100 SXM): device memory 3.35 TB/s (data
@@ -109,11 +116,13 @@ def main() -> None:
     from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
     from msm_zprize_tpu_torch.curves.params import BLS12_377, ED_ON_BLS12_377
     from msm_zprize_tpu_torch.curves.weierstrass import AffinePoints, ProjectivePoints
-    from msm_zprize_tpu_torch.fields import cuda_mul, cuda_scalar
+    from msm_zprize_tpu_torch.fields import cuda_codec, cuda_mul, cuda_scalar
+    from msm_zprize_tpu_torch.fields.codec import Fma51Codec
     from msm_zprize_tpu_torch.fields.scalar import signed_digits
     from msm_zprize_tpu_torch.msm.common import default_windows, window_size
     from msm_zprize_tpu_torch.msm.engine import slot_count
     from msm_zprize_tpu_torch.parallel.api import TwistedEdwards, Weierstrass
+    from msm_zprize_tpu_torch.submission import compute_msm
     from msm_zprize_tpu_torch.testing.points import (
         ed_expected_msm, ed_naive_msm, ed_points_with_logs, expected_msm, naive_msm,
         points_with_logs,
@@ -175,6 +184,14 @@ def main() -> None:
         """Max |difference| of the limbs of the fully reduced values."""
         return max((G.fully_reduce(g).long() - G.fully_reduce(w).long()).abs().max().item()
                    for g, w in zip(got, want))
+
+    def rows_err(G, codec, got, want):
+        """mod_p_err of codec rows, through their digit planes; every output
+        must also hold a value below 2p."""
+        dig = [codec.to_digits(G, g) for g in got]
+        if not all(torch.equal(G._sub_const_select(d, G.two_p_limbs), d) for d in dig):
+            raise AssertionError(f"{type(codec).__name__} output at or above 2p")
+        return mod_p_err(G, dig, [codec.to_digits(G, w) for w in want])
 
     # ---- 2. kernels vs plain twins at slice shapes ----------------------------
     table = []
@@ -364,6 +381,80 @@ def main() -> None:
                    _cuda_ms(torch, lambda: cuda_edwards.ed_double_k_plain(E, *a12, k), PLAIN_REPS),
                    f"W={width}, k={k}", 8 * n22 * 4 * width, 9 * k * mm8 * width)
     del a12
+
+    # codec storage: K13 on PackedCodec (n = 32, beta * x of the packed MSM)
+    # and Fma51Codec (n = 22); K14 = K3-K7 on 13-row PackedCodec storage
+    Wp = curve.ops_packed
+    pc, r13 = Wp.codec, Wp.codec.rows
+    fc51 = Fma51Codec(FE.p)
+    for key, G, codec, mm in (("k13", F, pc, mm12), ("k13_fma51", FE, fc51, mm8)):
+        x, y = codec.from_digits(G, field_elems(G, N)), codec.from_digits(G, field_elems(G, N))
+        kernel_row(key, f"montmul_rows_{type(codec).__name__}", "K13", src + "montmul.cu",
+                   "msm_zprize_tpu/fields/fma51_pallas.py:302",
+                   rows_err(G, codec, [cuda_codec.montmul_rows(G, codec, x, y)],
+                            [cuda_codec.montmul_rows_plain(G, codec, x, y)]),
+                   _cuda_ms(torch, lambda: cuda_codec.montmul_rows(G, codec, x, y)),
+                   _cuda_ms(torch, lambda: cuda_codec.montmul_rows_plain(G, codec, x, y), PLAIN_REPS),
+                   f"({codec.rows}, {N}), n = {G.n}", 3 * codec.rows * 4 * N, mm * N)
+    del x, y
+
+    def prow(width):
+        return pc.from_digits(F, field_elems(F, width))
+
+    k14 = "msm_zprize_tpu/curves/pallas_curve.py:149"
+    a3 = [prow(lanes1), prow(lanes1), flags(lanes1), flags(lanes1),
+          prow(lanes1), prow(lanes1), flags(lanes1), flags(lanes1)]
+    kernel_row("k14_k3", "aff_pair_add_packed", "K14-K3", src + "curve_codec.cu", k14,
+               rows_err(F, pc, cuda_curve.aff_pair_add(Wp, *a3), cuda_curve.aff_pair_add_plain(Wp, *a3)),
+               _cuda_ms(torch, lambda: cuda_curve.aff_pair_add(Wp, *a3)),
+               _cuda_ms(torch, lambda: cuda_curve.aff_pair_add_plain(Wp, *a3), PLAIN_REPS),
+               f"W={lanes1}, {r13} rows", (7 * r13 + 4) * 4 * lanes1, 9 * mm12 * lanes1)
+    del a3
+    a4 = [prow(lanes1 // 2) for _ in range(6)]
+    kernel_row("k14_k4", "proj_add_packed", "K14-K4", src + "curve_codec.cu", k14,
+               rows_err(F, pc, cuda_curve.proj_add(Wp, *a4), cuda_curve.proj_add_plain(Wp, *a4)),
+               _cuda_ms(torch, lambda: cuda_curve.proj_add(Wp, *a4)),
+               _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(Wp, *a4), PLAIN_REPS),
+               f"W={lanes1 // 2}, {r13} rows", 9 * r13 * 4 * (lanes1 // 2), 12 * mm12 * (lanes1 // 2))
+    del a4
+    for width, k in ((K, c0), (1, c)):
+        a5 = [prow(width) for _ in range(3)]
+        kernel_row("k14_k5", "proj_double_k_packed", "K14-K5", src + "curve_codec.cu", k14,
+                   rows_err(F, pc, cuda_curve.proj_double_k(Wp, *a5, k),
+                            cuda_curve.proj_double_k_plain(Wp, *a5, k)),
+                   _cuda_ms(torch, lambda: cuda_curve.proj_double_k(Wp, *a5, k)),
+                   _cuda_ms(torch, lambda: cuda_curve.proj_double_k_plain(Wp, *a5, k), PLAIN_REPS),
+                   f"W={width}, k={k}, {r13} rows", 6 * r13 * 4 * width, 8 * k * mm12 * width)
+    # the K14 variants on no path of the codec modes (those run only the
+    # projective pipeline), at small widths; pass-through lanes bit for bit
+    a4 = [prow(SMALL) for _ in range(6)]
+    m4 = flags(SMALL)
+    got, want = cuda_curve.proj_add(Wp, *a4, mask=m4), cuda_curve.proj_add_plain(Wp, *a4, mask=m4)
+    off = m4 == 0
+    kernel_row("k14_k4m", "proj_add_masked_packed", "K14-K4m", src + "curve_codec.cu", k14,
+               max(rows_err(F, pc, got, want),
+                   raw_err([g[:, off] for g in got], [a[:, off] for a in a4[:3]])),
+               _cuda_ms(torch, lambda: cuda_curve.proj_add(Wp, *a4, mask=m4)),
+               _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(Wp, *a4, mask=m4), PLAIN_REPS),
+               f"W={SMALL}, masked, {r13} rows", (9 * r13 + 1) * 4 * SMALL,
+               12 * mm12 * int(m4.sum().item()))
+    kernel_row("k14_k6", "proj_double_packed", "K14-K6", src + "curve_codec.cu", k14,
+               rows_err(F, pc, cuda_curve.proj_double(Wp, *a4[:3]),
+                        cuda_curve.proj_double_plain(Wp, *a4[:3])),
+               _cuda_ms(torch, lambda: cuda_curve.proj_double(Wp, *a4[:3])),
+               _cuda_ms(torch, lambda: cuda_curve.proj_double_plain(Wp, *a4[:3]), PLAIN_REPS),
+               f"W={SMALL}, {r13} rows", 6 * r13 * 4 * SMALL, 8 * mm12 * SMALL)
+    got, want = (cuda_curve.proj_add_mixed(Wp, *a4[:5], m4),
+                 cuda_curve.proj_add_mixed_plain(Wp, *a4[:5], m4))
+    on = m4 == 1
+    kernel_row("k14_k7", "proj_add_mixed_packed", "K14-K7", src + "curve_codec.cu", k14,
+               max(rows_err(F, pc, got, want),
+                   raw_err([g[:, on] for g in got], [a[:, on] for a in a4[:3]])),
+               _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed(Wp, *a4[:5], m4)),
+               _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed_plain(Wp, *a4[:5], m4), PLAIN_REPS),
+               f"W={SMALL}, {r13} rows", (8 * r13 + 1) * 4 * SMALL,
+               11 * mm12 * int((~on).sum().item()))
+    del a4, got, want
     torch.cuda.synchronize()
 
     # ---- 3-8. each curve: small MSMs, the 2^16 MSM, timing -----------------------
@@ -410,6 +501,8 @@ def main() -> None:
         points = cv.points_from_ints(pts_n, dev)
         setup_s = time.perf_counter() - t0
         known[label] = (points, logs)
+        if label == "bls12-377":
+            known_ints = (pts_n, logs)
         scal = cv.random_scalars(N, seed=SEED + 1, device=dev)
         torch.cuda.synchronize()
         counters.reset()
@@ -454,10 +547,11 @@ def main() -> None:
             raise AssertionError(f"{what}: kernels of the path were not launched: {missing}")
         return got
 
-    def drive(what, run, keys, check):
+    def drive(what, run, keys, check, absent=()):
         """One run with the counts set to 0 just before it and read just
-        after, its check, then MODE_WARMUP + MODE_RUNS timed runs of the same
-        inputs. Returns the first run's launches."""
+        after, its check (and no launch of the kernels in ``absent``), then
+        MODE_WARMUP + MODE_RUNS timed runs of the same inputs. Returns the
+        first run's launches of the kernels in ``keys`` and ``absent``."""
         torch.cuda.synchronize()
         counters.reset()
         t0 = time.perf_counter()
@@ -467,6 +561,10 @@ def main() -> None:
         counts = counters.snapshot()
         check(out)
         launches = launches_of(counts, keys, what)
+        stray = {k: counts[k] for k in absent if counts.get(k, 0)}
+        if stray:
+            raise AssertionError(f"{what}: launched kernels that are off its path: {stray}")
+        launches.update({k: counts.get(k, 0) for k in absent})
         times = []
         for i in range(MODE_WARMUP + MODE_RUNS):
             t0 = time.perf_counter()
@@ -574,12 +672,54 @@ def main() -> None:
         print(f"    {label}: every lane on the curve (on the card), {SAMPLE} sampled lanes equal "
               f"the host sums of their picks; {msg}")
 
-    # the new kernels' launches: per run of the path each serves first
+    # ---- 12. the codec storage mode ------------------------------------------------
+    print(f"[12 packed 2^{LOG_N}] bls12-377 on PackedCodec rows ({Wp.codec.rows} of 31 bits a "
+          "coordinate): each result equals (sum s_i a_i mod q) G")
+    points, _ = known["bls12-377"]
+    packed_keys = (cuda_codec.K13, cuda_scalar.KERNEL) + tuple(
+        cuda_curve.K14[k] for k in (cuda_curve.K3, cuda_curve.K4, cuda_curve.K5))
+    # off the packed path: K1 (beta x runs on K13), K13 on Fma51Codec, and
+    # the K14 variants the projective pipeline does not run
+    packed_absent = (cuda_mul.KERNEL, cuda_codec.K13_FMA51) + tuple(
+        cuda_curve.K14[k] for k in (cuda_curve.K4M, cuda_curve.K6, cuda_curve.K7))
+    for what, run in (
+        ("msm(mode='projective')", lambda: curve.msm(scal, points)),
+        ("msm(mode='packed')", lambda: curve.msm(scal, points, mode="packed")),
+        ("msm_unsafe(mode='packed')", lambda: curve.msm_unsafe(scal, points, mode="packed")),
+    ):
+        packed = "packed" in what
+        mode_launches[what] = drive(
+            f"bls12-377 {what}", run,
+            packed_keys if packed else (cuda_mul.KERNEL, cuda_scalar.KERNEL, cuda_curve.K3),
+            equals_known(f"bls12-377 {what}", curve, want),
+            absent=packed_absent if packed else ())
+    pts_n, logs_n = known_ints
+    scs_n = curve.scalar.unpack(scal.cpu())
+    dup_pts, dup_logs = pts_n[:-1] + [pts_n[0]], logs_n[:-1] + [logs_n[0]]
+    for what, pts_i, logs_i in (("distinct points", pts_n, logs_n),
+                                ("a duplicated point", dup_pts, dup_logs)):
+        t0 = time.perf_counter()
+        got = compute_msm(pts_i, scs_n, mode="packed", device=dev)
+        secs = time.perf_counter() - t0
+        if got != expected_msm(BLS12_377, scs_n, logs_i):
+            raise AssertionError(f"compute_msm(mode='packed') with {what} disagrees with the host oracle")
+        print(f"    compute_msm({N} int points and scalars, mode='packed') with {what}: equals the "
+              f"known-discrete-log result; {secs:.2f} s with the int conversions")
+
+    # the new kernels' launches: per run of the path each serves first; the
+    # K14 variants no codec-mode path runs, and K13 on Fma51Codec, as the
+    # packed run's counts read them (0, checked there)
+    src_runs = {"k4m": ("msm(mode='halving')", cuda_curve.K4M),
+                "k6": ("subgroup check", cuda_curve.K6),
+                "k7": ("msm(mode='affine')", cuda_curve.K7),
+                "k8_bls": ("msm(mode='affine')", cuda_mul.K8),
+                "k13": ("msm(mode='packed')", cuda_codec.K13),
+                "k13_fma51": ("msm(mode='packed')", cuda_codec.K13_FMA51)}
+    for k in (cuda_curve.K3, cuda_curve.K4, cuda_curve.K4M, cuda_curve.K5, cuda_curve.K6,
+              cuda_curve.K7):
+        src_runs["k14_" + k.split("_")[0]] = ("msm(mode='packed')", cuda_curve.K14[k])
     for row in table:
-        src_run = {"k4m": ("msm(mode='halving')", cuda_curve.K4M),
-                   "k6": ("subgroup check", cuda_curve.K6),
-                   "k7": ("msm(mode='affine')", cuda_curve.K7),
-                   "k8_bls": ("msm(mode='affine')", cuda_mul.K8)}.get(row["key"])
+        src_run = src_runs.get(row["key"])
         if src_run is not None:
             row["launches"] = mode_launches[src_run[0]][src_run[1]]
 

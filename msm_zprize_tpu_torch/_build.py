@@ -27,7 +27,7 @@ from pathlib import Path
 
 __all__ = [
     "BuildInfo", "library", "check", "ptrs", "ints", "stream_of",
-    "on_cpu", "rows", "flags", "field_words",
+    "on_cpu", "rows", "flags", "field_words", "codec_arg",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -43,6 +43,7 @@ _P, _I, _W = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ENTRIES = {
     # (ptrs, lds, width, n, [int arguments], [host words], consts, stream)
     "msm_montmul": [_P, _P, _W, _I, _P, _P],
+    "msm_montmul_rows": [_P, _P, _W, _I, _I, _P, _P],
     "msm_exp_const": [_P, _P, _W, _I, _P, _P, _P],
     "msm_glv_digits": [_P, _P, _W, _I, _I, _P, _P],
     "msm_simple_digits": [_P, _P, _W, _I, _I, _I, _P],
@@ -51,10 +52,17 @@ _ENTRIES = {
     "msm_proj_double_k": [_P, _P, _W, _I, _I, _P, _P],
     "msm_proj_double": [_P, _P, _W, _I, _P, _P],
     "msm_proj_add_mixed": [_P, _P, _W, _I, _P, _P],
+    # K14: the five entries above on row-codec storage (csrc/curve_codec.cu)
+    "msm_codec_aff_pair_add": [_P, _P, _W, _I, _P, _P],
+    "msm_codec_proj_add": [_P, _P, _W, _I, _I, _P, _P],
+    "msm_codec_proj_double_k": [_P, _P, _W, _I, _I, _P, _P],
+    "msm_codec_proj_double": [_P, _P, _W, _I, _P, _P],
+    "msm_codec_proj_add_mixed": [_P, _P, _W, _I, _P, _P],
     "msm_ed_pair_add": [_P, _P, _W, _I, _P, _P],
     "msm_ed_add": [_P, _P, _W, _I, _I, _P, _P],
     "msm_ed_double_k": [_P, _P, _W, _I, _I, _P, _P],
     "msm_field_const_words": [_I],
+    "msm_codec_rows": [_I, _I],
     "msm_exp_words": [],
     "msm_glv_const_words": [],
 }
@@ -220,3 +228,25 @@ def field_words(F, curve_mont: tuple[int, int] = (0, 0), small: int = 0) -> ctyp
     if len(words) != lib.msm_field_const_words(F.n):
         raise RuntimeError("FieldConsts layout mismatch between Python and csrc/field.cuh")
     return ints(words, ctypes.c_uint32)
+
+
+@functools.cache
+def codec_arg(F, codec) -> int:
+    """The codec id the C entry points take for ``codec`` on the field F,
+    once its row count is checked against the rows of the kernels' codec
+    table (``csrc/codec.cuh``, read through ``msm_codec_rows``); other pairs
+    are refused with the table's entries."""
+    from .fields.codec import CODEC_IDS, codec_id
+
+    cid = codec_id(codec)
+    lib, _ = library()
+    if F.w != 12 or lib.msm_codec_rows(F.n, cid) != codec.rows:
+        built = [f"{name} ({lib.msm_codec_rows(n, i)} rows) on n = {n}"
+                 for n in FIELD_WORDS for name, i in CODEC_IDS.items()
+                 if lib.msm_codec_rows(n, i) > 0]
+        raise ValueError(
+            f"no CUDA kernel for {type(codec).__name__} ({codec.rows} rows) on a field of "
+            f"w = {F.w}, n = {F.n}: the kernels take {', '.join(built)} "
+            "(ROADMAP queue 1, item 15: more field shapes)"
+        )
+    return cid

@@ -325,14 +325,15 @@ __device__ __forceinline__ void store_out(const Operands& ops, int i, int64_t la
   store_fe(a, reinterpret_cast<int32_t*>(ops.p[i]), ops.ld[i], lane);
 }
 
-// Operand i's stored limbs of one lane, copied to output o bit for bit (a
-// pass-through lane keeps the caller's representative, not a reduced one).
-template <class S>
-__device__ __forceinline__ void copy_out(const Operands& ops, int i, int o, int64_t lane) {
+// Operand i's ROWS stored rows (limbs, or a row codec's rows) of one lane,
+// copied to output o bit for bit (a pass-through lane keeps the caller's
+// representative, not a reduced one).
+template <int ROWS>
+__device__ __forceinline__ void copy_rows(const Operands& ops, int i, int o, int64_t lane) {
   const int32_t* src = reinterpret_cast<const int32_t*>(ops.p[i]);
   int32_t* dst = reinterpret_cast<int32_t*>(ops.p[o]);
 #pragma unroll
-  for (int l = 0; l < S::NL; ++l) dst[l * ops.ld[o] + lane] = __ldg(src + l * ops.ld[i] + lane);
+  for (int l = 0; l < ROWS; ++l) dst[l * ops.ld[o] + lane] = __ldg(src + l * ops.ld[i] + lane);
 }
 
 }  // namespace msm

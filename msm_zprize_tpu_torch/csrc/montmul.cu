@@ -24,9 +24,21 @@
 // products), so it is one thread's latency and nothing else; it is one
 // launch instead of the ~760 a product per launch would take.
 //
-// Both are instantiated for every field shape of field.cuh; the entry
-// points take the field's limb count n and refuse any other.
-#include "field.cuh"
+// K13: the same Montgomery product on row-codec storage (codec.cuh):
+// decode two (rows, W) operands into register words, mont_mul with the
+// limb code's own R = 2^(12 n), encode the result (< 2p). Replaces
+// msm_zprize_tpu/fields/fma51_pallas.py::montmul51_pallas (body
+// _montmul51_kernel: decode rows to 12-bit digits, the interval-tracked
+// CIOS, encode with a conditional-subtract chain). The output is already
+// canonical and < 2p, so the encode is a pure repack. Instantiated for
+// PackedCodec on Fp32 (BLS12-377: 13 rows; beta * x of the packed MSM) and
+// for PackedCodec (9 rows) and Fma51Codec (10 rows) on Fp22. Bound as K1:
+// bytes and launches at 65,536 lanes, with 13 rows a value instead of 32.
+//
+// K1 and K8 are instantiated for every field shape of field.cuh; the entry
+// points take the field's limb count n (and K13 the codec id) and refuse
+// any other.
+#include "codec.cuh"
 
 namespace msm {
 
@@ -41,6 +53,19 @@ montmul_kernel(const int32_t* __restrict__ x, int64_t ldx,
   const Fe<S> a = load_fe<S>(x, ldx, lane);
   const Fe<S> b = load_fe<S>(y, ldy, lane);
   store_fe(mont_mul(a, b, fc), out, ldo, lane);
+}
+
+template <class S, class C>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+montmul_rows_kernel(const int32_t* __restrict__ x, int64_t ldx,
+                    const int32_t* __restrict__ y, int64_t ldy,
+                    int32_t* __restrict__ out, int64_t ldo, int64_t W,
+                    const __grid_constant__ FieldConsts<S> fc) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= W) return;
+  const Fe<S> a = load_rows<S, C>(x, ldx, lane);
+  const Fe<S> b = load_rows<S, C>(y, ldy, lane);
+  store_rows<S, C>(mont_mul(a, b, fc), out, ldo, lane);
 }
 
 // The exponent: bit i of e is bit (i % 32) of w[i / 32], for i < nbits.
@@ -76,6 +101,16 @@ int launch_montmul(const uint64_t* ptrs, const int64_t* lds, int64_t W,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class S, class C>
+int launch_montmul_rows(const uint64_t* ptrs, const int64_t* lds, int64_t W,
+                        const uint32_t* consts, cudaStream_t stream) {
+  montmul_rows_kernel<S, C><<<grid_for(W), BLOCK_THREADS, 0, stream>>>(
+      reinterpret_cast<const int32_t*>(ptrs[0]), lds[0],
+      reinterpret_cast<const int32_t*>(ptrs[1]), lds[1],
+      reinterpret_cast<int32_t*>(ptrs[2]), lds[2], W, field_consts_from_host<S>(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class S>
 int launch_exp(const uint64_t* ptrs, const int64_t* lds, int64_t W, const ExpBits& e,
                const uint32_t* consts, cudaStream_t stream) {
@@ -97,6 +132,19 @@ extern "C" int msm_montmul(const uint64_t* ptrs, const int64_t* lds, int64_t W, 
     case Fp22::NL: return launch_montmul<Fp22>(ptrs, lds, W, consts, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K13. ptrs: {x, y, out}; lds: row strides; codec: a codec id of the table
+// in codec.cuh (msm_codec_rows says how many rows each pair takes).
+extern "C" int msm_montmul_rows(const uint64_t* ptrs, const int64_t* lds, int64_t W, int n,
+                                int codec, const uint32_t* consts, void* stream) {
+  using namespace msm;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int code = with_codec(n, codec, [&](auto e) {
+    using E = decltype(e);
+    return launch_montmul_rows<typename E::S, typename E::C>(ptrs, lds, W, consts, s);
+  });
+  return code < 0 ? static_cast<int>(cudaErrorInvalidValue) : code;
 }
 
 // ptrs: {x, out}; lds: {ldx, ldo}; ebits: EXP_WORDS words of e, LSB first,
@@ -124,6 +172,13 @@ extern "C" int msm_field_const_words(int n) {
     case Fp22::NL: return field_const_words<Fp22>();
     default: return -1;
   }
+}
+
+// Rows a value of a field of n limbs takes in the codec `codec`, from the
+// table in codec.cuh, -1 for none: the Python side checks its codec's row
+// count against it and names the table's entries when it refuses one.
+extern "C" int msm_codec_rows(int n, int codec) {
+  return msm::with_codec(n, codec, [](auto e) { return decltype(e)::C::ROWS; });
 }
 
 extern "C" int msm_exp_words() { return sizeof(msm::ExpBits) / sizeof(uint32_t); }

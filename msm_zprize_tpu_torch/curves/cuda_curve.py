@@ -1,4 +1,5 @@
-"""K3-K7 wrappers (``csrc/curve.cu``) and their plain PyTorch twins.
+"""K3-K7 wrappers (``csrc/curve.cu``; K14, the same kernels on row-codec
+storage: ``csrc/curve_codec.cu``) and their plain PyTorch twins.
 
 Replace the formula bodies of ``msm_zprize_tpu/curves/pallas_curve.py``:
 
@@ -16,9 +17,20 @@ follow the JAX package's jnp path (``curves/weierstrass.py``) op for op with
 plain field ops, so the two agree exactly mod p (and bit for bit on the
 pass-through lanes). Field operands are ``(n, *batch)`` int32 Montgomery
 limbs of one batch shape; flags are ``(*batch,)`` integer or bool tensors.
+
+Every curve ops object ``W`` says how it stores a coordinate in
+``W.storage`` (a :class:`Storage`): 12-bit limbs (``WeierstrassOps``), or,
+for K14, the rows of a codec (``curves/weierstrass51.py``), where field
+operands are ``(codec.rows, *batch)`` rows and the wrappers launch the same
+formulas on that storage (``csrc/curve_codec.cu``, counted under the
+``k14_*`` keys). The twins decode the rows to digit planes, run the
+formulas and encode the result; the pass-through lanes keep the caller's
+rows bit for bit.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -26,16 +38,54 @@ from .. import _build
 from ..counters import COUNTS
 
 __all__ = [
-    "aff_pair_add", "proj_add", "proj_double_k", "proj_double", "proj_add_mixed",
+    "Storage", "aff_pair_add", "proj_add", "proj_double_k", "proj_double", "proj_add_mixed",
     "aff_pair_add_plain", "proj_add_plain", "proj_double_k_plain", "proj_double_plain",
     "proj_add_mixed_plain",
 ]
 
 K3, K4, K4M, K5 = "k3_aff_pair_add", "k4_proj_add", "k4m_proj_add_masked", "k5_proj_double_k"
 K6, K7 = "k6_proj_double", "k7_proj_add_mixed"
+# the K14 variant of each kernel: the same formula on row-codec storage
+K14 = {k: "k14_" + k for k in (K3, K4, K4M, K5, K6, K7)}
+
+
+@dataclass(frozen=True)
+class Storage:
+    """How a curve ops object stores a coordinate, as the wrappers read it:
+    ``rows`` int32 rows per value, the name prefixes of its C entry points
+    and of its launch counters, and its row codec (None: 12-bit Montgomery
+    limbs, which the formulas take as they are)."""
+
+    rows: int
+    entry: str = "msm_"
+    counter: str = ""
+    codec: object = None
+
+    @classmethod
+    def of_codec(cls, codec) -> "Storage":
+        """K14's storage: ``codec``'s rows, the ``msm_codec_*`` entries."""
+        return cls(codec.rows, "msm_codec_", "k14_", codec)
+
+    def decode(self, F, a):
+        """A stored field operand as the digit planes the twins compute on."""
+        return a if self.codec is None else self.codec.to_digits(F, a)
+
+    def encode(self, F, a):
+        """Digit planes of a value < 2p in this storage."""
+        return a if self.codec is None else self.codec.from_digits(F, a)
+
+    def words(self, W) -> object:
+        """The FieldConsts words of W's kernels, once a codec's rows are
+        checked against the kernels' codec table."""
+        if self.codec is not None:
+            _build.codec_arg(W.F, self.codec)
+        return _build.field_words(W.F, (W.b3_mont, 0), W.b3_small)
 
 
 # ---- plain twins (the JAX jnp-path formulas) ---------------------------------
+# The formulas run on digit planes (_rcb7, _rcb8, _rcb9, _aff_pair); the
+# public twins run them on W's storage (_on_storage) and apply the
+# pass-through masks to the caller's own tensors.
 
 
 def _mul_b3(W, x):
@@ -54,9 +104,16 @@ def _pass_through(keep, out, P1):
     return tuple(torch.where(keep.bool(), o, a) for o, a in zip(out, P1))
 
 
-def proj_add_plain(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
-    """Renes-Costello-Batina Alg. 7 (a = 0), 12 muls; with ``mask``, lanes
-    where mask == 0 return P1."""
+def _on_storage(W, formula, args, fields):
+    """formula(W, *args) on W's storage: the field operands (positions
+    ``fields``) decoded to digit planes, the outputs encoded again."""
+    st = W.storage
+    dec = [st.decode(W.F, a) if i in fields else a for i, a in enumerate(args)]
+    return tuple(st.encode(W.F, o) for o in formula(W, *dec))
+
+
+def _rcb7(W, X1, Y1, Z1, X2, Y2, Z2):
+    """Renes-Costello-Batina Alg. 7 (a = 0), 12 muls."""
     F = W.F
     M, A, S = F.montmul_plain, F.add, F.sub
     t0 = M(X1, X2)
@@ -76,14 +133,11 @@ def proj_add_plain(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
     X3 = S(M(t3, t1), M(t4, Y3))
     Y3 = A(M(t1, Z3), M(Y3, t0))
     Z3 = A(M(Z3, t4), M(t0, t3))
-    if mask is not None:
-        return _pass_through(mask, (X3, Y3, Z3), (X1, Y1, Z1))
     return X3, Y3, Z3
 
 
-def proj_add_mixed_plain(W, X1, Y1, Z1, x2, y2, inf2):
-    """Renes-Costello-Batina Alg. 8 (a = 0, Z2 = 1), 11 muls; lanes where
-    inf2 is set return P1."""
+def _rcb8(W, X1, Y1, Z1, x2, y2):
+    """Renes-Costello-Batina Alg. 8 (a = 0, Z2 = 1), 11 muls."""
     F = W.F
     M, A, S = F.montmul_plain, F.add, F.sub
     t0 = M(X1, x2)
@@ -100,10 +154,10 @@ def proj_add_mixed_plain(W, X1, Y1, Z1, x2, y2, inf2):
     X3 = S(M(t3, t1), M(t4, Y3))
     Y3 = A(M(t1, Z3), M(Y3, t0))
     Z3 = A(M(Z3, t4), M(t0, t3))
-    return _pass_through(~inf2.bool(), (X3, Y3, Z3), (X1, Y1, Z1))
+    return X3, Y3, Z3
 
 
-def proj_double_plain(W, X1, Y1, Z1):
+def _rcb9(W, X1, Y1, Z1):
     """Renes-Costello-Batina Alg. 9 (a = 0), 8 muls."""
     F = W.F
     M, A, S = F.montmul_plain, F.add, F.sub
@@ -124,14 +178,7 @@ def proj_double_plain(W, X1, Y1, Z1):
     return A(X3, X3), Y3, Z3
 
 
-def proj_double_k_plain(W, X1, Y1, Z1, k: int):
-    P = (X1, Y1, Z1)
-    for _ in range(k):
-        P = proj_double_plain(W, *P)
-    return P
-
-
-def aff_pair_add_plain(W, x1, y1, s1, v1, x2, y2, s2, v2):
+def _aff_pair(W, x1, y1, s1, v1, x2, y2, s2, v2):
     """Sign + identity encoding of both slots, then the complete add."""
     F = W.F
 
@@ -145,16 +192,50 @@ def aff_pair_add_plain(W, x1, y1, s1, v1, x2, y2, s2, v2):
             torch.where(v, one, zero),
         )
 
-    return proj_add_plain(W, *prep(x1, y1, s1, v1), *prep(x2, y2, s2, v2))
+    return _rcb7(W, *prep(x1, y1, s1, v1), *prep(x2, y2, s2, v2))
+
+
+def proj_add_plain(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
+    """RCB Alg. 7 (K4's twin); with ``mask`` (K4m's), lanes where mask == 0
+    return P1."""
+    out = _on_storage(W, _rcb7, (X1, Y1, Z1, X2, Y2, Z2), range(6))
+    return out if mask is None else _pass_through(mask, out, (X1, Y1, Z1))
+
+
+def proj_add_mixed_plain(W, X1, Y1, Z1, x2, y2, inf2):
+    """RCB Alg. 8 (K7's twin); lanes where inf2 is set return P1."""
+    out = _on_storage(W, _rcb8, (X1, Y1, Z1, x2, y2), range(5))
+    return _pass_through(~inf2.bool(), out, (X1, Y1, Z1))
+
+
+def proj_double_plain(W, X1, Y1, Z1):
+    """RCB Alg. 9 (K6's twin)."""
+    return _on_storage(W, _rcb9, (X1, Y1, Z1), range(3))
+
+
+def proj_double_k_plain(W, X1, Y1, Z1, k: int):
+    """k chained RCB Alg. 9 doublings (K5's twin)."""
+
+    def chain(W_, *P):
+        for _ in range(k):
+            P = _rcb9(W_, *P)
+        return P
+
+    return _on_storage(W, chain, (X1, Y1, Z1), range(3))
+
+
+def aff_pair_add_plain(W, x1, y1, s1, v1, x2, y2, s2, v2):
+    """K3's twin: the signed/valid slots encoded, then RCB Alg. 7."""
+    return _on_storage(W, _aff_pair, (x1, y1, s1, v1, x2, y2, s2, v2), (0, 1, 4, 5))
 
 
 # ---- kernel wrappers -----------------------------------------------------------
 
 
-def field_rows(F, arrs, batch):
+def field_rows(n, arrs, batch):
     """Operands of one batch shape as (n, width) views with unit lane stride
-    (and their row strides), copying only those whose lanes are not adjacent."""
-    n = F.n
+    (and their row strides), copying only those whose lanes are not adjacent;
+    n is the rows a value takes (limbs, or a codec's rows)."""
     if any(tuple(a.shape[1:]) != tuple(batch) for a in arrs):
         raise ValueError(f"operands differ in batch shape: {[tuple(a.shape) for a in arrs]}")
     # (n, W) views where the batch axes merge with unit lane stride (slices
@@ -176,16 +257,17 @@ def flag_rows(flags, width):
     return out
 
 
-def launch(F, words, name, entry, ins, lds, width, batch, n_out, extra=()):
-    """Allocate n_out (n, width) outputs, launch ``entry``, count it, and
-    return the outputs in the operands' batch shape."""
-    n = F.n
+def launch(F, words, name, entry, ins, lds, width, batch, n_out, extra=(), n=None):
+    """Allocate n_out (n, width) outputs (n: F.n limbs unless given, the
+    rows of a codec), launch ``entry``, count it, and return the outputs in
+    the operands' batch shape."""
+    n = F.n if n is None else n
     device = ins[0].device
     outs = [torch.empty((n, width), dtype=torch.int32, device=device) for _ in range(n_out)]
     if width:
         lib, _ = _build.library()
         code = getattr(lib, entry)(
-            _build.ptrs(*ins, *outs), _build.ints(lds + [width] * n_out), width, n, *extra,
+            _build.ptrs(*ins, *outs), _build.ints(lds + [width] * n_out), width, F.n, *extra,
             words, _build.stream_of(outs[0]),
         )
         _build.check(code, name)
@@ -194,21 +276,25 @@ def launch(F, words, name, entry, ins, lds, width, batch, n_out, extra=()):
 
 
 def _launch(W, name, entry, ins, lds, width, batch, extra=()):
-    words = _build.field_words(W.F, (W.b3_mont, 0), W.b3_small)
-    return launch(W.F, words, name, entry, ins, lds, width, batch, 3, extra)
+    """Launch the curve kernel ``entry`` on W's storage, counted under
+    ``name`` with the storage's prefixes."""
+    st = W.storage
+    return launch(W.F, st.words(W), st.counter + name, st.entry + entry, ins, lds, width, batch,
+                  3, extra, n=st.rows)
 
 
 def aff_pair_add(W, x1, y1, s1, v1, x2, y2, s2, v2):
     """K3: operand i is ((-1)^s_i * (x_i, y_i)) where v_i != 0, else the
     identity; x_i, y_i raw affine coordinates (< 2p). Returns (X3, Y3, Z3)."""
-    if _build.on_cpu(x1, y1, s1, v1, x2, y2, s2, v2):
-        return aff_pair_add_plain(W, x1, y1, s1, v1, x2, y2, s2, v2)
+    args = (x1, y1, s1, v1, x2, y2, s2, v2)
+    if _build.on_cpu(*args):
+        return aff_pair_add_plain(W, *args)
     batch = x1.shape[1:]
-    (fx1, fy1, fx2, fy2), lds, width = field_rows(W.F, (x1, y1, x2, y2), batch)
+    (fx1, fy1, fx2, fy2), lds, width = field_rows(W.storage.rows, (x1, y1, x2, y2), batch)
     fl = flag_rows((s1, v1, s2, v2), width)
     ins = (fx1, fy1, fl[0], fl[1], fx2, fy2, fl[2], fl[3])
     lds = [lds[0], lds[1], 0, 0, lds[2], lds[3], 0, 0]
-    return _launch(W, K3, "msm_aff_pair_add", ins, lds, width, batch)
+    return _launch(W, K3, "aff_pair_add", ins, lds, width, batch)
 
 
 def proj_add(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
@@ -218,11 +304,11 @@ def proj_add(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
     if _build.on_cpu(*ops, *(() if mask is None else (mask,))):
         return proj_add_plain(W, *ops, mask=mask)
     batch = X1.shape[1:]
-    ins, lds, width = field_rows(W.F, ops, batch)
+    ins, lds, width = field_rows(W.storage.rows, ops, batch)
     if mask is not None:
         ins = ins + flag_rows((mask,), width)
         lds = lds + [0]
-    return _launch(W, K4 if mask is None else K4M, "msm_proj_add", ins, lds, width, batch,
+    return _launch(W, K4 if mask is None else K4M, "proj_add", ins, lds, width, batch,
                    extra=(int(mask is not None),))
 
 
@@ -231,19 +317,20 @@ def proj_double(W, X1, Y1, Z1):
     if _build.on_cpu(X1, Y1, Z1):
         return proj_double_plain(W, X1, Y1, Z1)
     batch = X1.shape[1:]
-    ins, lds, width = field_rows(W.F, (X1, Y1, Z1), batch)
-    return _launch(W, K6, "msm_proj_double", ins, lds, width, batch)
+    ins, lds, width = field_rows(W.storage.rows, (X1, Y1, Z1), batch)
+    return _launch(W, K6, "proj_double", ins, lds, width, batch)
 
 
 def proj_add_mixed(W, X1, Y1, Z1, x2, y2, inf2):
     """K7: (X1:Y1:Z1) + the affine point (x2, y2), or P1 bit for bit where
     inf2 is set (the affine operand is infinity)."""
-    if _build.on_cpu(X1, Y1, Z1, x2, y2, inf2):
-        return proj_add_mixed_plain(W, X1, Y1, Z1, x2, y2, inf2)
+    args = (X1, Y1, Z1, x2, y2, inf2)
+    if _build.on_cpu(*args):
+        return proj_add_mixed_plain(W, *args)
     batch = X1.shape[1:]
-    ins, lds, width = field_rows(W.F, (X1, Y1, Z1, x2, y2), batch)
+    ins, lds, width = field_rows(W.storage.rows, (X1, Y1, Z1, x2, y2), batch)
     ins = ins + flag_rows((inf2,), width)
-    return _launch(W, K7, "msm_proj_add_mixed", ins, lds + [0], width, batch)
+    return _launch(W, K7, "proj_add_mixed", ins, lds + [0], width, batch)
 
 
 def proj_double_k(W, X1, Y1, Z1, k: int):
@@ -253,5 +340,5 @@ def proj_double_k(W, X1, Y1, Z1, k: int):
     if _build.on_cpu(X1, Y1, Z1):
         return proj_double_k_plain(W, X1, Y1, Z1, k)
     batch = X1.shape[1:]
-    ins, lds, width = field_rows(W.F, (X1, Y1, Z1), batch)
-    return _launch(W, K5, "msm_proj_double_k", ins, lds, width, batch, extra=(k,))
+    ins, lds, width = field_rows(W.storage.rows, (X1, Y1, Z1), batch)
+    return _launch(W, K5, "proj_double_k", ins, lds, width, batch, extra=(k,))

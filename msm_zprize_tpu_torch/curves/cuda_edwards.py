@@ -86,7 +86,7 @@ def ed_pair_add(E, x1, y1, s1, v1, x2, y2, s2, v2):
     if _build.on_cpu(x1, y1, s1, v1, x2, y2, s2, v2):
         return ed_pair_add_plain(E, x1, y1, s1, v1, x2, y2, s2, v2)
     batch = x1.shape[1:]
-    (fx1, fy1, fx2, fy2), lds, width = field_rows(E.F, (x1, y1, x2, y2), batch)
+    (fx1, fy1, fx2, fy2), lds, width = field_rows(E.F.n, (x1, y1, x2, y2), batch)
     fl = flag_rows((s1, v1, s2, v2), width)
     ins = (fx1, fy1, fl[0], fl[1], fx2, fy2, fl[2], fl[3])
     lds = [lds[0], lds[1], 0, 0, lds[2], lds[3], 0, 0]
@@ -100,7 +100,7 @@ def ed_add(E, X1, Y1, Z1, T1, X2, Y2, Z2, T2, mask=None):
     if _build.on_cpu(*ops, *(() if mask is None else (mask,))):
         return ed_add_plain(E, *ops, mask=mask)
     batch = X1.shape[1:]
-    ins, lds, width = field_rows(E.F, ops, batch)
+    ins, lds, width = field_rows(E.F.n, ops, batch)
     if mask is not None:
         ins = ins + flag_rows((mask,), width)
         lds = lds + [0]
@@ -115,5 +115,5 @@ def ed_double_k(E, X1, Y1, Z1, T1, k: int):
     if _build.on_cpu(X1, Y1, Z1, T1):
         return ed_double_k_plain(E, X1, Y1, Z1, T1, k)
     batch = X1.shape[1:]
-    ins, lds, width = field_rows(E.F, (X1, Y1, Z1, T1), batch)
+    ins, lds, width = field_rows(E.F.n, (X1, Y1, Z1, T1), batch)
     return launch(E.F, _words(E), K12, "msm_ed_double_k", ins, lds, width, batch, 4, extra=(k,))

@@ -58,6 +58,7 @@ class WeierstrassOps:
         # multiplication commutes with the Montgomery form)
         self.b3_small = 3 * params.b
         self.beta_mont = params.beta * F.R % params.modulus if params.beta is not None else None
+        self.storage = cuda_curve.Storage(F.n)  # 12-bit Montgomery limbs
 
     # ---- coordinate storage hooks ----------------------------------------------
 

@@ -30,6 +30,7 @@ __all__ = [
     "negate_mod_pow2",
     "extract_bits",
     "bytes_to_limbs",
+    "bytes_to_ints",
     "random_uniform_limbs",
 ]
 
@@ -157,6 +158,11 @@ def bytes_to_limbs(data: np.ndarray, scheme: LimbScheme) -> np.ndarray:
             acc += (b << shift) if shift >= 0 else (b >> -shift)
         out[i] = (acc & scheme.mask).astype(np.int32)
     return out
+
+
+def bytes_to_ints(data: np.ndarray) -> list[int]:
+    """(B, nbytes) uint8 little-endian -> Python ints."""
+    return [int.from_bytes(row.tobytes(), "little") for row in data]
 
 
 def _less_than(limbs: np.ndarray, bound_limbs: np.ndarray) -> np.ndarray:

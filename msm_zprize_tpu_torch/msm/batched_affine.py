@@ -15,8 +15,10 @@ Mirror of ``msm_zprize_tpu/msm/batched_affine.py``:
   then ``finalize_projective_buckets``.
 
 ``safe=False`` (``msm_unsafe``) is the msmUnsafe contract of the affine
-mode: every effective point distinct. The codec storage modes (``"fma51"``,
-``"packed"``) are ROADMAP queue 1, item 11.
+mode: every effective point distinct. The codec storage modes (``"packed"``,
+``"fma51"``) run the projective pipeline with row-codec curve ops
+(``curves/weierstrass51.py``) as ``W``; ``parallel/api.py`` converts the
+points in and the result out.
 """
 
 from __future__ import annotations
@@ -43,8 +45,9 @@ MODES = ("projective", "affine", "halving")
 
 
 def glv_prep(W: WeierstrassOps, S: GlvScalar, scalars, points: AffinePoints, c: int):
-    """GLV decomposition + endomorphism expansion to 2N points, and signed
-    c-bit digits of both scalar halves. Returns (pts2, mags, signs, K, L)."""
+    """GLV decomposition + endomorphism expansion to 2N points (beta * x on
+    K1, or K13 on codec rows), and signed c-bit digits of both scalar
+    halves. Returns (pts2, mags, signs, K, L)."""
     K = default_windows(S.max_bits, c)
     L = 1 << (c - 1)
     endo = W.endomorphism(points)
@@ -176,10 +179,6 @@ def msm_batched_affine(W: WeierstrassOps, S: GlvScalar, scalars, points: AffineP
     Returns the MSM as one projective point (batch size 1). ``safe`` reaches
     only the affine mode (the complete adds of the others are always safe)."""
     if mode not in MODES:
-        if mode in ("fma51", "packed"):
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP queue 1, item 11: codec storage modes)"
-            )
         raise ValueError(f"unknown MSM mode {mode!r}; expected one of {MODES}")
     N = points.x.shape[-1]
     if c is None:

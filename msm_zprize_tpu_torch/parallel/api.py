@@ -6,7 +6,8 @@ msm_projective, msm_bigint, random_scalars, random_points_fast). Every
 entry point that makes tensors puts them on the card (``device="cuda"``)
 unless the caller names another device, such as ``"cpu"`` for the plain
 PyTorch twins; ``msm`` runs on the device of its inputs. Modes: Weierstrass
-``"projective"`` (the default), ``"affine"`` and ``"halving"``; twisted
+``"projective"`` (the default), ``"affine"``, ``"halving"`` and the codec
+storage mode ``"packed"`` (``"fma51"`` where p < 2^255 - 2^206); twisted
 Edwards ``"padded"`` (the default) and ``"basic"``.
 """
 
@@ -22,6 +23,8 @@ from ..bigint.weierstrass import AffineCurve
 from ..curves.edwards import EdwardsOps, ExtPoints
 from ..curves.params import EdwardsParams, WeierstrassParams
 from ..curves.weierstrass import AffinePoints, ProjectivePoints, WeierstrassOps
+from ..curves.weierstrass51 import Fma51WeierstrassOps, PackedWeierstrassOps
+from ..fields.codec import FMA51_BOUND
 from ..fields.limbs import random_uniform_limbs
 from ..fields.scalar import SimpleScalar, make_glv_scalar
 from ..msm.basic import msm_basic_edwards, msm_basic_projective
@@ -30,6 +33,7 @@ from ..msm.batched_affine import msm_batched_affine
 __all__ = ["Weierstrass", "TwistedEdwards"]
 
 DEVICE = "cuda"
+CODEC_MODES = ("fma51", "packed")
 
 
 def _random_scalars(q: int, scalar, N: int, seed: int, device) -> torch.Tensor:
@@ -126,13 +130,51 @@ class Weierstrass:
         pad2 = lambda a, value=0: torch.nn.functional.pad(a, (0, pad), value=value)
         return pad2(scalars), AffinePoints(pad2(points.x), pad2(points.y), pad2(points.inf, 1))
 
+    @property
+    def ops51(self) -> Fma51WeierstrassOps:
+        """Curve ops on 51x5 pair-row storage (``Fma51Codec``): only for
+        p < 2^255 - 2^206."""
+        if getattr(self, "_ops51", None) is None:
+            if self.params.modulus >= FMA51_BOUND:
+                raise ValueError(
+                    f"mode='fma51' needs p < 2^255 - 2^206 (the 51x5 layout's 255-bit ceiling); "
+                    f"{self.label}'s p has {self.params.modulus.bit_length()} bits. Its curve in "
+                    "the JAX package is Pallas, whose CUDA field shape is ROADMAP queue 1, item 15"
+                )
+            self._ops51 = Fma51WeierstrassOps(self.params)
+        return self._ops51
+
+    @property
+    def ops_packed(self) -> PackedWeierstrassOps:
+        """Curve ops on dense 31-bit-row storage (``PackedCodec``, any p):
+        the engine's gathers and trees move ~2.5x fewer bytes."""
+        if getattr(self, "_ops_packed", None) is None:
+            self._ops_packed = PackedWeierstrassOps(self.params)
+        return self._ops_packed
+
+    def _codec_ops(self, mode: str):
+        return self.ops51 if mode == "fma51" else self.ops_packed
+
+    def _msm(self, scalars, points: AffinePoints, c, safe: bool, mode: str) -> ProjectivePoints:
+        scalars, points = self._pad(scalars, points)
+        if mode not in CODEC_MODES:
+            return msm_batched_affine(self.ops, self.scalar, scalars, points, c, safe=safe,
+                                      mode=mode)
+        # the codec modes: the projective pipeline with coordinates in the
+        # codec's rows, converted on the way in and out
+        Wc = self._codec_ops(mode)
+        pts = AffinePoints(Wc.from_native(points.x), Wc.from_native(points.y), points.inf)
+        res = msm_batched_affine(Wc, self.scalar, scalars, pts, c, safe=safe, mode="projective")
+        return ProjectivePoints(*(Wc.to_native(a) for a in res))
+
     def msm(self, scalars, points: AffinePoints, c: int | None = None,
             mode: str = "projective") -> ProjectivePoints:
         """Safe MSM (duplicate points allowed): scalars (n, N) limbs, points
         an affine batch of N, on one device. mode: "projective" (the
-        default), "affine" (batched-affine adds) or "halving"."""
-        scalars, points = self._pad(scalars, points)
-        return msm_batched_affine(self.ops, self.scalar, scalars, points, c, mode=mode)
+        default), "affine" (batched-affine adds), "halving", or a codec
+        storage mode, "packed" or "fma51" (the projective pipeline on row
+        storage). The result is in the native layout in every mode."""
+        return self._msm(scalars, points, c, True, mode)
 
     def msm_unsafe(self, scalars, points: AffinePoints, c: int | None = None,
                    mode: str = "projective") -> ProjectivePoints:
@@ -140,9 +182,7 @@ class Weierstrass:
         which only the affine mode exploits (its adds then skip the doubling
         and cancellation masks); the complete adds of the other modes make
         it the safe path."""
-        scalars, points = self._pad(scalars, points)
-        return msm_batched_affine(self.ops, self.scalar, scalars, points, c, safe=False,
-                                  mode=mode)
+        return self._msm(scalars, points, c, False, mode)
 
     def msm_projective(self, scalars, points: ProjectivePoints,
                        c: int | None = None) -> ProjectivePoints:

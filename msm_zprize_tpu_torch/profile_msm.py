@@ -3,7 +3,8 @@
     python3 -m msm_zprize_tpu_torch.profile_msm [--curve ed-on-bls12-377] [--log-n 16] [--path PATH]
 
 PATH is the curve's default MSM mode (``projective`` or ``padded``, the
-default), another mode (``affine``, ``unsafe``, ``halving``; ``basic``),
+default), another mode (``affine``, ``unsafe``, ``halving``, ``packed``
+(BLS12-377 on 13-row PackedCodec storage); ``basic``),
 ``msm_projective`` (BLS12-377, the same points with random Z) or
 ``random_points`` (``random_points_fast``, host table included). Prints,
 each number beside the card's name and power limit as ``nvidia-smi``
@@ -88,8 +89,8 @@ def main(argv=None) -> None:
     ap.add_argument("--log-n", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--path", default=None, choices=[
-        "projective", "affine", "unsafe", "halving", "msm_projective", "padded", "basic",
-        "random_points"])
+        "projective", "affine", "unsafe", "halving", "packed", "msm_projective", "padded",
+        "basic", "random_points"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_msm: needs a CUDA device")

@@ -1,9 +1,10 @@
 """Carry inputs made by the JAX package over to the port.
 
 The two packages share one layout ((n, B) int32 limbs, w = 12, Montgomery
-coordinates), so this is a checked copy: arrays arrive as numpy (callers
-pass ``np.asarray(jax_array)``), their dtype, shape and limb range are
-verified, and they land on the requested device.
+coordinates; or (rows, B) int32 rows of a row codec), so this is a checked
+copy: arrays arrive as numpy (callers pass ``np.asarray(jax_array)``), their
+dtype, shape and limb or row range are verified, and they land on the
+requested device.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ import torch
 from ..curves.edwards import ExtPoints
 from ..curves.weierstrass import AffinePoints, ProjectivePoints
 
-__all__ = ["affine_from_jax", "proj_from_jax", "ext_from_jax", "scalars_from_jax"]
+__all__ = [
+    "affine_from_jax", "affine_rows_from_jax", "proj_from_jax", "ext_from_jax", "scalars_from_jax",
+]
 
 
 def _limbs(arr, n: int, w: int, name: str) -> np.ndarray:
@@ -26,16 +29,34 @@ def _limbs(arr, n: int, w: int, name: str) -> np.ndarray:
     return a
 
 
-def affine_from_jax(x, y, inf, field, device) -> AffinePoints:
-    """JAX ``AffinePoints`` leaves (as numpy) -> the port's AffinePoints."""
-    xs = _limbs(x, field.n, field.w, "x")
-    ys = _limbs(y, field.n, field.w, "y")
+def _points(xs, ys, inf, device) -> AffinePoints:
     fl = np.asarray(inf)
     if fl.dtype != np.int32 or fl.shape != (xs.shape[1],) or ys.shape != xs.shape:
         raise ValueError(f"inconsistent point leaves: x {xs.shape}, y {ys.shape}, inf {fl.dtype} {fl.shape}")
     if not np.isin(fl, (0, 1)).all():
         raise ValueError("inf flags must be 0 or 1")
     return AffinePoints(*(torch.as_tensor(np.array(a), device=device) for a in (xs, ys, fl)))
+
+
+def affine_from_jax(x, y, inf, field, device) -> AffinePoints:
+    """JAX ``AffinePoints`` leaves (as numpy) -> the port's AffinePoints."""
+    return _points(_limbs(x, field.n, field.w, "x"), _limbs(y, field.n, field.w, "y"), inf, device)
+
+
+def _rows(arr, codec, name: str) -> np.ndarray:
+    a = np.asarray(arr)
+    if a.dtype != np.int32 or a.ndim != 2 or a.shape[0] != codec.rows:
+        raise ValueError(f"{name}: expected int32 ({codec.rows}, B), got {a.dtype} {a.shape}")
+    widths = np.array(codec.widths, dtype=np.int64)[:, None]
+    if a.size and ((a < 0).any() or (a >= (1 << widths)).any()):
+        raise ValueError(f"{name}: rows outside [0, 2^width) of {type(codec).__name__}")
+    return a
+
+
+def affine_rows_from_jax(x, y, inf, codec, device) -> AffinePoints:
+    """JAX ``AffinePoints`` leaves on row-codec storage (as numpy; the
+    ``weierstrass51`` ops' ``pack_affine``) -> the port's AffinePoints."""
+    return _points(_rows(x, codec, "x"), _rows(y, codec, "y"), inf, device)
 
 
 def _coords(arrs, names: str, field, device) -> list[torch.Tensor]:

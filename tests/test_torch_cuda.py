@@ -12,7 +12,10 @@ are odd (ragged last block) and some operands are strided slices, which
 the kernels read in place. Tolerance: K2 and K9 bit-exact; K1 limb-exact
 (the Montgomery product is one integer) on both field shapes; K3-K8 and
 K10-K12 exact mod p, and the pass-through lanes of K4m and K7 bit for bit;
-the halving layout on int32 CUDA tensors bit-exact against the CPU.
+the halving layout on int32 CUDA tensors bit-exact against the CPU; K13
+on PackedCodec (n = 32 and 22) and Fma51Codec (n = 22) rows and the K14
+variants of K3-K7 on PackedCodec rows exact mod p with every output below
+2p, their pass-through lanes bit for bit.
 """
 
 import numpy as np
@@ -23,11 +26,13 @@ from msm_zprize_tpu_torch.counters import COUNTS
 from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
 from msm_zprize_tpu_torch.curves.params import BLS12_377, ED_ON_BLS12_377
 from msm_zprize_tpu_torch.curves.weierstrass import ProjectivePoints
-from msm_zprize_tpu_torch.fields import cuda_mul
+from msm_zprize_tpu_torch.fields import cuda_codec, cuda_mul
+from msm_zprize_tpu_torch.fields.codec import Fma51Codec, PackedCodec
 from msm_zprize_tpu_torch.fields.cuda_scalar import glv_digits, glv_digits_plain, simple_digits
 from msm_zprize_tpu_torch.fields.scalar import signed_digits
 from msm_zprize_tpu_torch.msm.common import halving_layout
 from msm_zprize_tpu_torch.parallel.api import TwistedEdwards, Weierstrass
+from msm_zprize_tpu_torch.submission import compute_msm
 from msm_zprize_tpu_torch.testing.points import (
     ed_expected_msm, ed_points_with_logs, expected_msm, points_with_logs,
 )
@@ -57,6 +62,13 @@ def _elems(dev, rng, width=WIDTH, rows=32):
     limbs = rng.integers(0, 1 << 12, size=(rows, width), dtype=np.int32)
     limbs[-1] &= 0xF if rows == 32 else 0
     return torch.as_tensor(limbs, device=dev)
+
+
+def _rows_equal(F, codec, got, want):
+    """Equal mod p, and every output below 2p."""
+    g = codec.to_digits(F, got)
+    return (torch.equal(F.fully_reduce(g), F.fully_reduce(codec.to_digits(F, want)))
+            and torch.equal(F._sub_const_select(g, F.two_p_limbs), g))
 
 
 def test_kernels_match_plain_twins(dev, curve):
@@ -137,11 +149,53 @@ def test_kernels_match_plain_twins(dev, curve):
         "msm_projective": (lambda: curve.msm_projective(scalars, proj),
                            ("k9_simple_digits", "k4_proj_add", "k5_proj_double_k")),
     }
+    k14 = tuple(cuda_curve.K14[k] for k in (cuda_curve.K3, cuda_curve.K4, cuda_curve.K5))
+    runs.update({
+        "packed": (lambda: curve.msm(scalars, points, mode="packed"), ("k13_montmul_rows",) + k14),
+        "unsafe packed": (lambda: curve.msm_unsafe(scalars, points, mode="packed"), k14),
+    })
     for name, (run, keys) in runs.items():
         before = dict(COUNTS)
         assert curve.result_to_int(run()) == want, name
         for key in keys:
             assert COUNTS[key] > before.get(key, 0), (name, key)
+        if "packed" in name:  # the endomorphism ran on K13, not K1
+            assert COUNTS["k1_montmul"] == before.get("k1_montmul", 0), name
+    assert compute_msm(pts[:64], curve.scalar.unpack(scalars[:, :64]), mode="packed", device=dev) == \
+        expected_msm(BLS12_377, curve.scalar.unpack(scalars[:, :64]), logs[:64])
+
+    # K13 on both codecs and both field shapes; K14 (K3-K7 on PackedCodec
+    # rows), K4m on strided halves, pass-through lanes bit for bit
+    Wp = curve.ops_packed
+    F22 = TwistedEdwards.create(ED_ON_BLS12_377).ops.F
+    for G, codec, rows in ((F, Wp.codec, 32), (F22, Fma51Codec(F22.p), 22), (F22, PackedCodec(F22.p), 22)):
+        x, y = (codec.from_digits(G, _elems(dev, rng, rows=rows)) for _ in range(2))
+        key = cuda_codec.K13_FMA51 if isinstance(codec, Fma51Codec) else cuda_codec.K13
+        before = COUNTS[key]
+        assert _rows_equal(G, codec, cuda_codec.montmul_rows(G, codec, x, y),
+                           cuda_codec.montmul_rows_plain(G, codec, x, y)), codec
+        assert COUNTS[key] == before + 1, codec  # each codec counted under its own key
+    a = [Wp.from_native(_elems(dev, rng)) for _ in range(6)]
+    slot = Wp.from_native(_elems(dev, rng, width=2 * WIDTH))
+    m, inf = f[0], f[1]
+    pairs = {
+        "K14-K3": (cuda_curve.aff_pair_add(Wp, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3]),
+                   cuda_curve.aff_pair_add_plain(Wp, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3])),
+        "K14-K4": (cuda_curve.proj_add(Wp, *a), cuda_curve.proj_add_plain(Wp, *a)),
+        "K14-K4m strided": (
+            cuda_curve.proj_add(Wp, slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:], mask=m),
+            cuda_curve.proj_add_plain(Wp, slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:], mask=m)),
+        "K14-K5": (cuda_curve.proj_double_k(Wp, *a[:3], 5), cuda_curve.proj_double_k_plain(Wp, *a[:3], 5)),
+        "K14-K6": (cuda_curve.proj_double(Wp, *a[:3]), cuda_curve.proj_double_plain(Wp, *a[:3])),
+        "K14-K7": (cuda_curve.proj_add_mixed(Wp, *a[:5], inf), cuda_curve.proj_add_mixed_plain(Wp, *a[:5], inf)),
+    }
+    for name, (got, want) in pairs.items():
+        for g, w in zip(got, want):
+            assert _rows_equal(F, Wp.codec, g, w), name
+    for name, keep, p1 in (("K14-K4m strided", m == 0, (slot[:, :WIDTH], *a[1:3])),
+                           ("K14-K7", inf == 1, a[:3])):
+        for g, x in zip(pairs[name][0], p1):
+            assert torch.equal(g[:, keep], x[:, keep]), name
     rp = curve.random_points_fast(N, seed=3, device=dev)
     assert bool(W.affine_is_on_curve(rp).all())
 

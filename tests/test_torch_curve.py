@@ -124,7 +124,7 @@ def goldilocks():
     p = EXAMPLE_FIELDS["goldilocks"]
     F = make_field(p)
     b3 = 9
-    W = types.SimpleNamespace(F=F, b3_mont=b3 * F.R % p, b3_small=b3)
+    W = types.SimpleNamespace(F=F, b3_mont=b3 * F.R % p, b3_small=b3, storage=cuda_curve.Storage(F.n))
     kern = pc.CurveKernels(p, F.w, F.n, b3 * F.R % p, b3, interpret=True)
     rng = np.random.default_rng(9)
     vals = [F.pack([int(v) for v in rng.integers(0, p, size=B, dtype=np.uint64)]) for _ in range(6)]
