@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's MSM paths end to end on one GPU: the
 BLS12-377 MSM in its four modes (the codec storage mode "packed" among
 them) and on projective inputs, the ed-on-bls12-377 twisted-Edwards MSM in
-its two modes, the device generator of random points, and ``compute_msm``.
+its two modes, the device generator of random points, ``compute_msm``, and
+the BLS12-381 and Pallas MSMs (Pallas also on Fma51Codec rows, "fma51").
 
     python3 chip_smoke.py
 
@@ -38,7 +39,20 @@ non-zero and no result line is printed):
     13 rows of 31 bits; K13 and the K14 variants of K3-K5, no K1), each
     against the known-discrete-log result with its launch counts, 2 warmups
     and 5 timed runs beside the default mode's; then ``compute_msm`` on int
-    inputs, without and with a duplicated point, against the host oracle.
+    inputs, without and with a duplicated point, against the host oracle;
+13. BLS12-381 (n = 33 limbs, R = 2^396): the MSM at N = 8 and its edge cases
+    against both host oracles; ``msm`` in ``"projective"`` and ``"packed"``
+    (13 rows) at 2^16 against the known-discrete-log result, with the launch
+    counts of each path (each > 0; K1 = 0 on ``"packed"``), 2 warmups and 5
+    timed runs; then at N = 8 the other modes (``"affine"``,
+    ``msm_unsafe``, ``"halving"``, ``msm_projective``), ``random_points_fast``
+    and a subgroup check of its points on the card (K6);
+14. Pallas (n = 22, 4p > 2^256) the same way, with ``"fma51"`` (10 Fma51Codec
+    pair rows: K13 and the K14 variants on them) in place of ``"packed"`` at
+    2^16, and ``"packed"`` (9 rows) among the modes at N = 8.
+
+Phase 2 holds the kernels of phases 13-14 too: K1, K2, K8 and K3-K7 on each
+curve's limbs, K13 and the K14 variants on each of its codec storages.
 
 The second-to-last line is the kernel table as JSON, the last the result.
 Nothing of JAX or of the JAX package is imported: the port stands alone.
@@ -114,7 +128,7 @@ def main() -> None:
 
     from msm_zprize_tpu_torch import _build, counters
     from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
-    from msm_zprize_tpu_torch.curves.params import BLS12_377, ED_ON_BLS12_377
+    from msm_zprize_tpu_torch.curves.params import BLS12_377, BLS12_381, ED_ON_BLS12_377, PALLAS
     from msm_zprize_tpu_torch.curves.weierstrass import AffinePoints, ProjectivePoints
     from msm_zprize_tpu_torch.fields import cuda_codec, cuda_mul, cuda_scalar
     from msm_zprize_tpu_torch.fields.codec import Fma51Codec
@@ -147,29 +161,18 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"    ptxas: {line.strip()}")
 
-    curve = Weierstrass.create(BLS12_377)
-    W, F, S = curve.ops, curve.ops.F, curve.scalar
-    ed = TwistedEdwards.create(ED_ON_BLS12_377)
-    E, FE, SE = ed.ops, ed.ops.F, ed.scalar
-    N = 1 << LOG_N
-    c = window_size("batched-affine", LOG_N)
-    K, L = default_windows(S.max_bits, c), 1 << (c - 1)
-    M = slot_count(2 * N, L)
-    lanes1 = (M // 2) * K * L  # level-1 pairs of the main round
-    ce = window_size("edwards", LOG_N)
-    Ke, Le = default_windows(SE.bits, ce), 1 << (ce - 1)
-    Me = slot_count(N, Le)
-    lanes1e = (Me // 2) * Ke * Le
-    halving1 = K * ((2 * N + L) // 2 + 1)  # level 1 of the halving engine
-    c0 = max((c - 1) // 2, 1)
-    reduce_w = K * (L >> c0)  # the affine reduction's mixed adds: K x D lanes
     rng = np.random.default_rng(SEED)
 
-    def field_elems(G, width):
-        """Random Montgomery-form elements below 2^(bits(p) - 1) < p, on the card."""
-        top = (G.p.bit_length() - 1) - 12 * (G.n - 1)
+    def field_elems(G, width, edges=()):
+        """Random Montgomery-form elements below 2^(bits(p) - 1) < p, on the
+        card; the first lanes hold ``edges`` (values the kernels take) where
+        the width allows."""
         limbs = rng.integers(0, 1 << 12, size=(G.n, width), dtype=np.int32)
-        limbs[-1] &= (1 << max(top, 0)) - 1
+        keep = np.clip(G.p.bit_length() - 1 - 12 * np.arange(G.n), 0, 12)
+        limbs &= ((1 << keep) - 1).astype(np.int32)[:, None]
+        k = min(len(edges), width)
+        if k:
+            limbs[:, :k] = G.pack(list(edges[:k]), montgomery=False)
         return torch.as_tensor(limbs, device=dev)
 
     def flags(width):
@@ -194,132 +197,183 @@ def main() -> None:
         return mod_p_err(G, dig, [codec.to_digits(G, w) for w in want])
 
     # ---- 2. kernels vs plain twins at slice shapes ----------------------------
+    # Each row names the smoke run whose launch counts (set to 0 just before
+    # it, read just after) give its launches, and the counter it reads there.
     table = []
 
-    def kernel_row(key, name, kid, source, replaces, err, ms, plain_ms, shape, nbytes, imads):
+    def kernel_row(key, name, kid, source, replaces, run, counter, err, ms, plain_ms, shape,
+                   nbytes, imads):
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain twin at {shape}: max err {err}")
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, imads / imad_per_s * 1e3
         bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
         print(f"[2 kernel] {kid} {name} {shape}: equal to plain twin (max err {err}); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
-        table.append(dict(key=key, name=name, id=kid, route="cuda", source=source,
-                          replaces=replaces, launches=None, max_abs_err=err, ms=ms,
+        table.append(dict(key=key, name=name, id=kid, route="cuda", source=src + source,
+                          replaces=replaces, run=run, counter=counter, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=None, shape=shape))
 
-    mm12, mm8 = mont_imads(12, False), mont_imads(8, True)
     src = "msm_zprize_tpu_torch/csrc/"
+    curve_line = "msm_zprize_tpu/curves/pallas_curve.py:{}".format
 
-    # BLS12-377 path
-    x, y = field_elems(F, N), field_elems(F, N)
-    kernel_row("k1_bls", "montmul", "K1", src + "montmul.cu",
-               "msm_zprize_tpu/fields/pallas_mul.py:167",
-               mod_p_err(F, [cuda_mul.montmul(F, x, y)], [F.montmul_plain(x, y)]),
-               _cuda_ms(torch, lambda: cuda_mul.montmul(F, x, y)),
-               _cuda_ms(torch, lambda: F.montmul_plain(x, y), PLAIN_REPS), f"(32, {N})",
-               3 * 32 * 4 * N, mm12 * N)
+    def weierstrass_rows(cv, tag, units, runs):
+        """K1, K2, K8 and K3-K7 of one Weierstrass curve at the shapes of its
+        2^16 MSM, on each storage in ``units`` ((ops, curve unit, run of its
+        K3-K5; limbs first): K13 and the K14 variants on a codec storage. The
+        first lanes of every field operand are 2p - 1 and 2p - 2 (sums past
+        2^256 on Pallas); K1's also take 4p - 1 (its inputs are < 4p).
+        ``runs`` names the smoke runs that give the launches of K1/K2
+        ("proj"), K8 and K7 ("affine"), K4m ("halving") and K6 ("subgroup")."""
+        G, Sg = cv.ops.F, cv.scalar
+        n, nw, _ = _build.FIELD_SHAPES[_build.field_shape(G)]
+        mm = mont_imads(nw, 12 * n > 32 * nw)
+        edges = (2 * G.p - 1, 2 * G.p - 2)
+        cg = window_size("batched-affine", LOG_N)
+        Kg, Lg = default_windows(Sg.max_bits, cg), 1 << (cg - 1)
+        w1 = (slot_count(2 * N, Lg) // 2) * Kg * Lg  # level-1 pairs of the main round
+        wh = Kg * ((2 * N + Lg) // 2 + 1)  # level 1 of the halving engine
+        c0g = max((cg - 1) // 2, 1)
+        wr = Kg * (Lg >> c0g)  # the affine reduction's mixed adds
 
-    scal = curve.random_scalars(N, seed=SEED, device=dev)
-    gm, gs = cuda_scalar.glv_digits(S, scal, c, K)
-    wm, ws = cuda_scalar.glv_digits_plain(S, scal, c, K)
-    if not (torch.equal(gm, wm) and torch.equal(gs, ws)):
-        raise AssertionError("K2 glv_digits is not bit-identical to its plain twin")
-    k2_muls = 2 * S.n * len(S.m0) + 4 * sum(
-        1 for i in range(S.n_half + 1) for j in range(S.n_half) if i + j < S.n_acc)
-    kernel_row("k2", "glv_digits", "K2", src + "glv_digits.cu",
-               "msm_zprize_tpu/fields/pallas_scalar.py:279",
-               max((gm - wm).abs().max().item(), (gs - ws).abs().max().item()),
-               _cuda_ms(torch, lambda: cuda_scalar.glv_digits(S, scal, c, K)),
-               _cuda_ms(torch, lambda: cuda_scalar.glv_digits_plain(S, scal, c, K), PLAIN_REPS),
-               f"N={N}, c={c}, K={K}", (S.n + 4 * K) * 4 * N, k2_muls * N)
+        x, y = field_elems(G, N, edges + (4 * G.p - 1,)), field_elems(G, N, (4 * G.p - 1,) + edges)
+        kernel_row(f"k1_{tag}", f"montmul_{tag}", "K1", "montmul.cu",
+                   "msm_zprize_tpu/fields/pallas_mul.py:167", runs["proj"], cuda_mul.KERNEL,
+                   mod_p_err(G, [cuda_mul.montmul(G, x, y)], [G.montmul_plain(x, y)]),
+                   _cuda_ms(torch, lambda: cuda_mul.montmul(G, x, y)),
+                   _cuda_ms(torch, lambda: G.montmul_plain(x, y), PLAIN_REPS), f"({n}, {N})",
+                   3 * n * 4 * N, mm * N)
+        e = G.p - 2  # batch_inverse's one Fermat inverse, on one lane
+        kernel_row(f"k8_{tag}", f"exp_const_{tag}", "K8", "montmul.cu",
+                   "msm_zprize_tpu/fields/pallas_mul.py:237", runs["affine"], cuda_mul.K8,
+                   mod_p_err(G, [cuda_mul.exp_const(G, x[:, :1], e)], [G.exp_const_plain(x[:, :1], e)]),
+                   _cuda_ms(torch, lambda: cuda_mul.exp_const(G, x[:, :1], e)),
+                   _cuda_ms(torch, lambda: G.exp_const_plain(x[:, :1], e), PLAIN_REPS),
+                   f"({n}, 1), e = p - 2", 2 * n * 4, (e.bit_length() + bin(e).count("1")) * mm)
+        scal = cv.random_scalars(N, seed=SEED, device=dev)
+        gm, gs = cuda_scalar.glv_digits(Sg, scal, cg, Kg)
+        wm, ws = cuda_scalar.glv_digits_plain(Sg, scal, cg, Kg)
+        if not (torch.equal(gm, wm) and torch.equal(gs, ws)):
+            raise AssertionError(f"K2 glv_digits on {tag} is not bit-identical to its plain twin")
+        muls = 2 * Sg.n * len(Sg.m0) + 4 * sum(
+            1 for i in range(Sg.n_half + 1) for j in range(Sg.n_half) if i + j < Sg.n_acc)
+        kernel_row(f"k2_{tag}", f"glv_digits_{tag}", "K2", "glv_digits.cu",
+                   "msm_zprize_tpu/fields/pallas_scalar.py:279", runs["proj"], cuda_scalar.KERNEL,
+                   max((gm - wm).abs().max().item(), (gs - ws).abs().max().item()),
+                   _cuda_ms(torch, lambda: cuda_scalar.glv_digits(Sg, scal, cg, Kg)),
+                   _cuda_ms(torch, lambda: cuda_scalar.glv_digits_plain(Sg, scal, cg, Kg), PLAIN_REPS),
+                   f"N={N}, c={cg}, K={Kg}", (Sg.n + 4 * Kg) * 4 * N, muls * N)
+        del x, y, scal, gm, gs, wm, ws
 
-    a3 = [field_elems(F, lanes1), field_elems(F, lanes1), flags(lanes1), flags(lanes1),
-          field_elems(F, lanes1), field_elems(F, lanes1), flags(lanes1), flags(lanes1)]
-    kernel_row("k3", "aff_pair_add", "K3", src + "curve.cu",
-               "msm_zprize_tpu/curves/pallas_curve.py:372",
-               mod_p_err(F, cuda_curve.aff_pair_add(W, *a3), cuda_curve.aff_pair_add_plain(W, *a3)),
-               _cuda_ms(torch, lambda: cuda_curve.aff_pair_add(W, *a3)),
-               _cuda_ms(torch, lambda: cuda_curve.aff_pair_add_plain(W, *a3), PLAIN_REPS),
-               f"W={lanes1}", (7 * 32 + 4) * 4 * lanes1, 9 * mm12 * lanes1)
-    del a3
+        for Wc, unit, run in units:
+            codec = getattr(Wc, "codec", None)
+            if codec is None:
+                nr, cname, pre, side = n, "", "", runs
+                keys = {k: k for k in cuda_curve.KERNEL_IDS}
+                kid = lambda k: k
+                err = lambda got, want: mod_p_err(G, got, want)
+                elem = lambda width: field_elems(G, width, edges)
+            else:
+                # K4m, K6 and K7 are on no path of a codec mode: 0 launches in
+                # its run; they are timed at a small width
+                fma = isinstance(codec, Fma51Codec)
+                nr, cname = codec.rows, "_" + type(codec).__name__
+                pre, keys = ("k14_fma51_", cuda_curve.K14_FMA51) if fma else ("k14_", cuda_curve.K14)
+                side = {"halving": run, "subgroup": run, "affine": run}
+                kid = lambda k: "K14-" + k
+                err = lambda got, want, codec=codec: rows_err(G, codec, got, want)
+                elem = lambda width, codec=codec: codec.from_digits(G, field_elems(G, width, edges))
+                x, y = elem(N), elem(N)
+                kernel_row(f"{'k13_fma51' if fma else 'k13'}_{tag}", f"montmul_rows{cname}_{tag}",
+                           "K13", "montmul.cu", "msm_zprize_tpu/fields/fma51_pallas.py:302", run,
+                           cuda_codec.K13_FMA51 if fma else cuda_codec.K13,
+                           rows_err(G, codec, [cuda_codec.montmul_rows(G, codec, x, y)],
+                                    [cuda_codec.montmul_rows_plain(G, codec, x, y)]),
+                           _cuda_ms(torch, lambda: cuda_codec.montmul_rows(G, codec, x, y)),
+                           _cuda_ms(torch, lambda: cuda_codec.montmul_rows_plain(G, codec, x, y),
+                                    PLAIN_REPS),
+                           f"({nr}, {N}), n = {n}", 3 * nr * 4 * N, mm * N)
+                del x, y
 
-    for width in (lanes1 // 2, 1):
-        a4 = [field_elems(F, width) for _ in range(6)]
-        kernel_row("k4", "proj_add", "K4", src + "curve.cu",
-                   "msm_zprize_tpu/curves/pallas_curve.py:382",
-                   mod_p_err(F, cuda_curve.proj_add(W, *a4), cuda_curve.proj_add_plain(W, *a4)),
-                   _cuda_ms(torch, lambda: cuda_curve.proj_add(W, *a4)),
-                   _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(W, *a4), PLAIN_REPS),
-                   f"W={width}", 9 * 32 * 4 * width, 12 * mm12 * width)
-    del a4
+            def row(k, name, line, run_, *rest):
+                kernel_row(f"{pre}{k.lower()}_{tag}", f"{name}{cname}_{tag}", kid(k), unit,
+                           curve_line(line) if codec is None else curve_line(149), run_,
+                           keys[getattr(cuda_curve, k.upper())], *rest)
 
-    # K4m at the halving engine's first level; its masked-off lanes are P1
-    a4 = [field_elems(F, halving1) for _ in range(6)]
-    m4 = flags(halving1)
-    got, want = cuda_curve.proj_add(W, *a4, mask=m4), cuda_curve.proj_add_plain(W, *a4, mask=m4)
-    off = m4 == 0
-    err = max(mod_p_err(F, got, want), raw_err([g[:, off] for g in got], [a[:, off] for a in a4[:3]]))
-    kernel_row("k4m", "proj_add_masked", "K4m", src + "curve.cu",
-               "msm_zprize_tpu/curves/pallas_curve.py:382", err,
-               _cuda_ms(torch, lambda: cuda_curve.proj_add(W, *a4, mask=m4)),
-               _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(W, *a4, mask=m4), PLAIN_REPS),
-               f"W={halving1}, masked", (9 * 32 + 1) * 4 * halving1,
-               12 * mm12 * int(m4.sum().item()))
-    del a4, got, want
+            a3 = [elem(w1), elem(w1), flags(w1), flags(w1), elem(w1), elem(w1), flags(w1), flags(w1)]
+            row("K3", "aff_pair_add", 372, run,
+                err(cuda_curve.aff_pair_add(Wc, *a3), cuda_curve.aff_pair_add_plain(Wc, *a3)),
+                _cuda_ms(torch, lambda: cuda_curve.aff_pair_add(Wc, *a3)),
+                _cuda_ms(torch, lambda: cuda_curve.aff_pair_add_plain(Wc, *a3), PLAIN_REPS),
+                f"W={w1}, {nr} rows", (7 * nr + 4) * 4 * w1, 9 * mm * w1)
+            del a3
+            for width in (w1 // 2, 1):
+                a4 = [elem(width) for _ in range(6)]
+                row("K4", "proj_add", 382, run,
+                    err(cuda_curve.proj_add(Wc, *a4), cuda_curve.proj_add_plain(Wc, *a4)),
+                    _cuda_ms(torch, lambda: cuda_curve.proj_add(Wc, *a4)),
+                    _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(Wc, *a4), PLAIN_REPS),
+                    f"W={width}, {nr} rows", 9 * nr * 4 * width, 12 * mm * width)
+            for width, k in ((Kg, c0g), (1, cg)):
+                a5 = [elem(width) for _ in range(3)]
+                row("K5", "proj_double_k", 324, run,
+                    err(cuda_curve.proj_double_k(Wc, *a5, k), cuda_curve.proj_double_k_plain(Wc, *a5, k)),
+                    _cuda_ms(torch, lambda: cuda_curve.proj_double_k(Wc, *a5, k)),
+                    _cuda_ms(torch, lambda: cuda_curve.proj_double_k_plain(Wc, *a5, k), PLAIN_REPS),
+                    f"W={width}, k={k}, {nr} rows", 6 * nr * 4 * width, 8 * k * mm * width)
+            wm4 = wh if codec is None else SMALL
+            a4 = [elem(wm4) for _ in range(6)]
+            m4 = flags(wm4)
+            got, want = cuda_curve.proj_add(Wc, *a4, mask=m4), cuda_curve.proj_add_plain(Wc, *a4, mask=m4)
+            off = m4 == 0  # masked-off lanes are P1, bit for bit
+            row("K4m", "proj_add_masked", 382, side["halving"],
+                max(err(got, want), raw_err([g[:, off] for g in got], [a[:, off] for a in a4[:3]])),
+                _cuda_ms(torch, lambda: cuda_curve.proj_add(Wc, *a4, mask=m4)),
+                _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(Wc, *a4, mask=m4), PLAIN_REPS),
+                f"W={wm4}, masked, {nr} rows", (9 * nr + 1) * 4 * wm4, 12 * mm * int(m4.sum().item()))
+            del a4, got, want
+            a6 = [elem(SAMPLE) for _ in range(3)]  # the subgroup check's width
+            row("K6", "proj_double", 394, side["subgroup"],
+                err(cuda_curve.proj_double(Wc, *a6), cuda_curve.proj_double_plain(Wc, *a6)),
+                _cuda_ms(torch, lambda: cuda_curve.proj_double(Wc, *a6)),
+                _cuda_ms(torch, lambda: cuda_curve.proj_double_plain(Wc, *a6), PLAIN_REPS),
+                f"W={SAMPLE}, {nr} rows", 6 * nr * 4 * SAMPLE, 8 * mm * SAMPLE)
+            # the affine reduction's width and random_points_fast's
+            for width in ((wr, N) if codec is None else (SMALL,)):
+                a7 = [elem(width) for _ in range(5)]
+                i7 = flags(width)
+                got, want = (cuda_curve.proj_add_mixed(Wc, *a7, i7),
+                             cuda_curve.proj_add_mixed_plain(Wc, *a7, i7))
+                on = i7 == 1  # lanes with an infinite affine operand are P1
+                row("K7", "proj_add_mixed", 397, side["affine"],
+                    max(err(got, want), raw_err([g[:, on] for g in got], [a[:, on] for a in a7[:3]])),
+                    _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed(Wc, *a7, i7)),
+                    _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed_plain(Wc, *a7, i7), PLAIN_REPS),
+                    f"W={width}, {nr} rows", (8 * nr + 1) * 4 * width, 11 * mm * int((~on).sum().item()))
+            del a7, got, want
 
-    # K6 at the subgroup check's width (phase 11)
-    a6 = [field_elems(F, SAMPLE) for _ in range(3)]
-    kernel_row("k6", "proj_double", "K6", src + "curve.cu",
-               "msm_zprize_tpu/curves/pallas_curve.py:394",
-               mod_p_err(F, cuda_curve.proj_double(W, *a6), cuda_curve.proj_double_plain(W, *a6)),
-               _cuda_ms(torch, lambda: cuda_curve.proj_double(W, *a6)),
-               _cuda_ms(torch, lambda: cuda_curve.proj_double_plain(W, *a6), PLAIN_REPS),
-               f"W={SAMPLE}", 6 * 32 * 4 * SAMPLE, 8 * mm12 * SAMPLE)
-
-    # K7 at the affine reduction's width and at random_points_fast's; lanes
-    # with an infinite affine operand are P1
-    for width in (reduce_w, N):
-        a7 = [field_elems(F, width) for _ in range(5)]
-        i7 = flags(width)
-        got, want = (cuda_curve.proj_add_mixed(W, *a7, i7),
-                     cuda_curve.proj_add_mixed_plain(W, *a7, i7))
-        on = i7 == 1
-        err = max(mod_p_err(F, got, want), raw_err([g[:, on] for g in got], [a[:, on] for a in a7[:3]]))
-        kernel_row("k7", "proj_add_mixed", "K7", src + "curve.cu",
-                   "msm_zprize_tpu/curves/pallas_curve.py:397", err,
-                   _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed(W, *a7, i7)),
-                   _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed_plain(W, *a7, i7), PLAIN_REPS),
-                   f"W={width}", (8 * 32 + 1) * 4 * width, 11 * mm12 * int((~on).sum().item()))
-    del a7, got, want
-
-    # K8 on the 32-limb field: batch_inverse's one Fermat inverse (affine mode,
-    # to_affine)
-    e32 = F.p - 2
-    x1 = field_elems(F, 1)
-    kernel_row("k8_bls", "exp_const_n32", "K8", src + "montmul.cu",
-               "msm_zprize_tpu/fields/pallas_mul.py:237",
-               mod_p_err(F, [cuda_mul.exp_const(F, x1, e32)], [F.exp_const_plain(x1, e32)]),
-               _cuda_ms(torch, lambda: cuda_mul.exp_const(F, x1, e32)),
-               _cuda_ms(torch, lambda: F.exp_const_plain(x1, e32), PLAIN_REPS),
-               f"(32, 1), e = p - 2", 2 * 32 * 4, (e32.bit_length() + bin(e32).count("1")) * mm12)
-
-    for width, k in ((K, c0), (1, c)):
-        a5 = [field_elems(F, width) for _ in range(3)]
-        kernel_row("k5", "proj_double_k", "K5", src + "curve.cu",
-                   "msm_zprize_tpu/curves/pallas_curve.py:324",
-                   mod_p_err(F, cuda_curve.proj_double_k(W, *a5, k),
-                             cuda_curve.proj_double_k_plain(W, *a5, k)),
-                   _cuda_ms(torch, lambda: cuda_curve.proj_double_k(W, *a5, k)),
-                   _cuda_ms(torch, lambda: cuda_curve.proj_double_k_plain(W, *a5, k), PLAIN_REPS),
-                   f"W={width}, k={k}", 6 * 32 * 4 * width, 8 * k * mm12 * width)
-    del a5
+    curve = Weierstrass.create(BLS12_377)
+    W, F = curve.ops, curve.ops.F
+    ed = TwistedEdwards.create(ED_ON_BLS12_377)
+    E, FE, SE = ed.ops, ed.ops.F, ed.scalar
+    c381, cpal = Weierstrass.create(BLS12_381), Weierstrass.create(PALLAS)
+    N = 1 << LOG_N
+    weierstrass_rows(curve, "bls12-377", (
+        (curve.ops, "curve.cu", "bls12-377 msm 2^16"),
+        (curve.ops_packed, "curve_codec.cu", "bls12-377 msm(mode='packed')"),
+    ), dict(proj="bls12-377 msm 2^16", affine="bls12-377 msm(mode='affine')",
+            halving="bls12-377 msm(mode='halving')", subgroup="bls12-377 subgroup check"))
 
     # ed-on-bls12-377 path (n = 22, R = 2^264)
+    mm8 = mont_imads(8, True)
+    ed_run = "ed-on-bls12-377 msm 2^16"
+    ce = window_size("edwards", LOG_N)
+    Ke, Le = default_windows(SE.bits, ce), 1 << (ce - 1)
+    lanes1e = (slot_count(N, Le) // 2) * Ke * Le
     n22 = FE.n
     x, y = field_elems(FE, N), field_elems(FE, N)
-    kernel_row("k1_ed", "montmul_n22", "K1", src + "montmul.cu",
-               "msm_zprize_tpu/fields/pallas_mul.py:167",
+    kernel_row("k1_ed", "montmul_n22", "K1", "montmul.cu",
+               "msm_zprize_tpu/fields/pallas_mul.py:167", ed_run, cuda_mul.KERNEL,
                mod_p_err(FE, [cuda_mul.montmul(FE, x, y)], [FE.montmul_plain(x, y)]),
                _cuda_ms(torch, lambda: cuda_mul.montmul(FE, x, y)),
                _cuda_ms(torch, lambda: FE.montmul_plain(x, y), PLAIN_REPS), f"({n22}, {N})",
@@ -327,8 +381,8 @@ def main() -> None:
 
     e = FE.p - 2  # batch_inverse's one Fermat inverse, on one lane
     x1 = field_elems(FE, 1)
-    kernel_row("k8", "exp_const", "K8", src + "montmul.cu",
-               "msm_zprize_tpu/fields/pallas_mul.py:237",
+    kernel_row("k8", "exp_const", "K8", "montmul.cu",
+               "msm_zprize_tpu/fields/pallas_mul.py:237", ed_run, cuda_mul.K8,
                mod_p_err(FE, [cuda_mul.exp_const(FE, x1, e)], [FE.exp_const_plain(x1, e)]),
                _cuda_ms(torch, lambda: cuda_mul.exp_const(FE, x1, e)),
                _cuda_ms(torch, lambda: FE.exp_const_plain(x1, e), PLAIN_REPS),
@@ -340,8 +394,8 @@ def main() -> None:
     wm, ws = signed_digits(scal, ce, Ke, 12)
     if not (torch.equal(gm, wm) and torch.equal(gs, ws)):
         raise AssertionError("K9 simple_digits is not bit-identical to its plain twin")
-    kernel_row("k9", "simple_digits", "K9", src + "glv_digits.cu",
-               "msm_zprize_tpu/fields/pallas_scalar.py:239",
+    kernel_row("k9", "simple_digits", "K9", "glv_digits.cu",
+               "msm_zprize_tpu/fields/pallas_scalar.py:239", ed_run, cuda_scalar.K9,
                max((gm - wm).abs().max().item(), (gs - ws).abs().max().item()),
                _cuda_ms(torch, lambda: cuda_scalar.simple_digits(scal, ce, Ke)),
                _cuda_ms(torch, lambda: signed_digits(scal, ce, Ke, 12), PLAIN_REPS),
@@ -349,8 +403,8 @@ def main() -> None:
 
     a10 = [field_elems(FE, lanes1e), field_elems(FE, lanes1e), flags(lanes1e), flags(lanes1e),
            field_elems(FE, lanes1e), field_elems(FE, lanes1e), flags(lanes1e), flags(lanes1e)]
-    kernel_row("k10", "ed_pair_add", "K10", src + "edwards.cu",
-               "msm_zprize_tpu/curves/pallas_curve.py:449",
+    kernel_row("k10", "ed_pair_add", "K10", "edwards.cu",
+               "msm_zprize_tpu/curves/pallas_curve.py:449", ed_run, cuda_edwards.K10,
                mod_p_err(FE, cuda_edwards.ed_pair_add(E, *a10), cuda_edwards.ed_pair_add_plain(E, *a10)),
                _cuda_ms(torch, lambda: cuda_edwards.ed_pair_add(E, *a10)),
                _cuda_ms(torch, lambda: cuda_edwards.ed_pair_add_plain(E, *a10), PLAIN_REPS),
@@ -360,8 +414,8 @@ def main() -> None:
     for width, masked in ((lanes1e // 2, False), (lanes1e // 2, True), (1, False)):
         a11 = [field_elems(FE, width) for _ in range(8)]
         mask = {"mask": flags(width)} if masked else {}
-        kernel_row("k11", "ed_add", "K11", src + "edwards.cu",
-                   "msm_zprize_tpu/curves/pallas_curve.py:500",
+        kernel_row("k11", "ed_add", "K11", "edwards.cu",
+                   "msm_zprize_tpu/curves/pallas_curve.py:500", ed_run, cuda_edwards.K11,
                    mod_p_err(FE, cuda_edwards.ed_add(E, *a11, **mask),
                              cuda_edwards.ed_add_plain(E, *a11, **mask)),
                    _cuda_ms(torch, lambda: cuda_edwards.ed_add(E, *a11, **mask)),
@@ -373,8 +427,8 @@ def main() -> None:
     c0e = max((ce - 1) // 2, 1)
     for width, k in ((Ke, c0e), (1, ce)):
         a12 = [field_elems(FE, width) for _ in range(4)]
-        kernel_row("k12", "ed_double_k", "K12", src + "edwards.cu",
-                   "msm_zprize_tpu/curves/pallas_curve.py:494",
+        kernel_row("k12", "ed_double_k", "K12", "edwards.cu",
+                   "msm_zprize_tpu/curves/pallas_curve.py:494", ed_run, cuda_edwards.K12,
                    mod_p_err(FE, cuda_edwards.ed_double_k(E, *a12, k),
                              cuda_edwards.ed_double_k_plain(E, *a12, k)),
                    _cuda_ms(torch, lambda: cuda_edwards.ed_double_k(E, *a12, k)),
@@ -382,97 +436,84 @@ def main() -> None:
                    f"W={width}, k={k}", 8 * n22 * 4 * width, 9 * k * mm8 * width)
     del a12
 
-    # codec storage: K13 on PackedCodec (n = 32, beta * x of the packed MSM)
-    # and Fma51Codec (n = 22); K14 = K3-K7 on 13-row PackedCodec storage
-    Wp = curve.ops_packed
-    pc, r13 = Wp.codec, Wp.codec.rows
+    # K13 on Fma51Codec rows of the n = 22 Edwards field: on no MSM path (its
+    # 0 is read from the BLS12-377 packed run)
     fc51 = Fma51Codec(FE.p)
-    for key, G, codec, mm in (("k13", F, pc, mm12), ("k13_fma51", FE, fc51, mm8)):
-        x, y = codec.from_digits(G, field_elems(G, N)), codec.from_digits(G, field_elems(G, N))
-        kernel_row(key, f"montmul_rows_{type(codec).__name__}", "K13", src + "montmul.cu",
-                   "msm_zprize_tpu/fields/fma51_pallas.py:302",
-                   rows_err(G, codec, [cuda_codec.montmul_rows(G, codec, x, y)],
-                            [cuda_codec.montmul_rows_plain(G, codec, x, y)]),
-                   _cuda_ms(torch, lambda: cuda_codec.montmul_rows(G, codec, x, y)),
-                   _cuda_ms(torch, lambda: cuda_codec.montmul_rows_plain(G, codec, x, y), PLAIN_REPS),
-                   f"({codec.rows}, {N}), n = {G.n}", 3 * codec.rows * 4 * N, mm * N)
+    x, y = fc51.from_digits(FE, field_elems(FE, N)), fc51.from_digits(FE, field_elems(FE, N))
+    kernel_row("k13_fma51", "montmul_rows_Fma51Codec", "K13", "montmul.cu",
+               "msm_zprize_tpu/fields/fma51_pallas.py:302", "bls12-377 msm(mode='packed')",
+               cuda_codec.K13_FMA51,
+               rows_err(FE, fc51, [cuda_codec.montmul_rows(FE, fc51, x, y)],
+                        [cuda_codec.montmul_rows_plain(FE, fc51, x, y)]),
+               _cuda_ms(torch, lambda: cuda_codec.montmul_rows(FE, fc51, x, y)),
+               _cuda_ms(torch, lambda: cuda_codec.montmul_rows_plain(FE, fc51, x, y), PLAIN_REPS),
+               f"({fc51.rows}, {N}), n = {n22}", 3 * fc51.rows * 4 * N, mm8 * N)
     del x, y
 
-    def prow(width):
-        return pc.from_digits(F, field_elems(F, width))
-
-    k14 = "msm_zprize_tpu/curves/pallas_curve.py:149"
-    a3 = [prow(lanes1), prow(lanes1), flags(lanes1), flags(lanes1),
-          prow(lanes1), prow(lanes1), flags(lanes1), flags(lanes1)]
-    kernel_row("k14_k3", "aff_pair_add_packed", "K14-K3", src + "curve_codec.cu", k14,
-               rows_err(F, pc, cuda_curve.aff_pair_add(Wp, *a3), cuda_curve.aff_pair_add_plain(Wp, *a3)),
-               _cuda_ms(torch, lambda: cuda_curve.aff_pair_add(Wp, *a3)),
-               _cuda_ms(torch, lambda: cuda_curve.aff_pair_add_plain(Wp, *a3), PLAIN_REPS),
-               f"W={lanes1}, {r13} rows", (7 * r13 + 4) * 4 * lanes1, 9 * mm12 * lanes1)
-    del a3
-    a4 = [prow(lanes1 // 2) for _ in range(6)]
-    kernel_row("k14_k4", "proj_add_packed", "K14-K4", src + "curve_codec.cu", k14,
-               rows_err(F, pc, cuda_curve.proj_add(Wp, *a4), cuda_curve.proj_add_plain(Wp, *a4)),
-               _cuda_ms(torch, lambda: cuda_curve.proj_add(Wp, *a4)),
-               _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(Wp, *a4), PLAIN_REPS),
-               f"W={lanes1 // 2}, {r13} rows", 9 * r13 * 4 * (lanes1 // 2), 12 * mm12 * (lanes1 // 2))
-    del a4
-    for width, k in ((K, c0), (1, c)):
-        a5 = [prow(width) for _ in range(3)]
-        kernel_row("k14_k5", "proj_double_k_packed", "K14-K5", src + "curve_codec.cu", k14,
-                   rows_err(F, pc, cuda_curve.proj_double_k(Wp, *a5, k),
-                            cuda_curve.proj_double_k_plain(Wp, *a5, k)),
-                   _cuda_ms(torch, lambda: cuda_curve.proj_double_k(Wp, *a5, k)),
-                   _cuda_ms(torch, lambda: cuda_curve.proj_double_k_plain(Wp, *a5, k), PLAIN_REPS),
-                   f"W={width}, k={k}, {r13} rows", 6 * r13 * 4 * width, 8 * k * mm12 * width)
-    # the K14 variants on no path of the codec modes (those run only the
-    # projective pipeline), at small widths; pass-through lanes bit for bit
-    a4 = [prow(SMALL) for _ in range(6)]
-    m4 = flags(SMALL)
-    got, want = cuda_curve.proj_add(Wp, *a4, mask=m4), cuda_curve.proj_add_plain(Wp, *a4, mask=m4)
-    off = m4 == 0
-    kernel_row("k14_k4m", "proj_add_masked_packed", "K14-K4m", src + "curve_codec.cu", k14,
-               max(rows_err(F, pc, got, want),
-                   raw_err([g[:, off] for g in got], [a[:, off] for a in a4[:3]])),
-               _cuda_ms(torch, lambda: cuda_curve.proj_add(Wp, *a4, mask=m4)),
-               _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(Wp, *a4, mask=m4), PLAIN_REPS),
-               f"W={SMALL}, masked, {r13} rows", (9 * r13 + 1) * 4 * SMALL,
-               12 * mm12 * int(m4.sum().item()))
-    kernel_row("k14_k6", "proj_double_packed", "K14-K6", src + "curve_codec.cu", k14,
-               rows_err(F, pc, cuda_curve.proj_double(Wp, *a4[:3]),
-                        cuda_curve.proj_double_plain(Wp, *a4[:3])),
-               _cuda_ms(torch, lambda: cuda_curve.proj_double(Wp, *a4[:3])),
-               _cuda_ms(torch, lambda: cuda_curve.proj_double_plain(Wp, *a4[:3]), PLAIN_REPS),
-               f"W={SMALL}, {r13} rows", 6 * r13 * 4 * SMALL, 8 * mm12 * SMALL)
-    got, want = (cuda_curve.proj_add_mixed(Wp, *a4[:5], m4),
-                 cuda_curve.proj_add_mixed_plain(Wp, *a4[:5], m4))
-    on = m4 == 1
-    kernel_row("k14_k7", "proj_add_mixed_packed", "K14-K7", src + "curve_codec.cu", k14,
-               max(rows_err(F, pc, got, want),
-                   raw_err([g[:, on] for g in got], [a[:, on] for a in a4[:3]])),
-               _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed(Wp, *a4[:5], m4)),
-               _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed_plain(Wp, *a4[:5], m4), PLAIN_REPS),
-               f"W={SMALL}, {r13} rows", (8 * r13 + 1) * 4 * SMALL,
-               11 * mm12 * int((~on).sum().item()))
-    del a4, got, want
+    # BLS12-381 (Fp33: 12 words and a 12-bit tail round) and Pallas (Fp22c:
+    # 8 words, an 8-bit tail round, 4p > 2^256)
+    weierstrass_rows(c381, "bls12-381", (
+        (c381.ops, "curve_381.cu", "bls12-381 msm(mode='projective')"),
+        (c381.ops_packed, "curve_381_codec.cu", "bls12-381 msm(mode='packed')"),
+    ), dict(proj="bls12-381 msm(mode='projective')", affine="bls12-381 N=8 msm(mode='affine')",
+            halving="bls12-381 N=8 msm(mode='halving')", subgroup="bls12-381 N=8 subgroup check"))
+    weierstrass_rows(cpal, "pallas", (
+        (cpal.ops, "curve_pallas.cu", "pallas msm(mode='projective')"),
+        (cpal.ops51, "curve_pallas_codec.cu", "pallas msm(mode='fma51')"),
+        (cpal.ops_packed, "curve_pallas_codec.cu", "pallas N=8 msm(mode='packed')"),
+    ), dict(proj="pallas msm(mode='projective')", affine="pallas N=8 msm(mode='affine')",
+            halving="pallas N=8 msm(mode='halving')", subgroup="pallas N=8 subgroup check"))
     torch.cuda.synchronize()
 
-    # ---- 3-8. each curve: small MSMs, the 2^16 MSM, timing -----------------------
-    # the counter key of each table row, per path
-    path_keys = {
-        "bls12-377": {"k1_bls": cuda_mul.KERNEL, "k2": cuda_scalar.KERNEL, "k3": cuda_curve.K3,
-                      "k4": cuda_curve.K4, "k5": cuda_curve.K5},
-        "ed-on-bls12-377": {"k1_ed": cuda_mul.KERNEL, "k8": cuda_mul.K8, "k9": cuda_scalar.K9,
-                            "k10": cuda_edwards.K10, "k11": cuda_edwards.K11,
-                            "k12": cuda_edwards.K12},
-    }
-    curves = (
-        ("bls12-377", 3, curve, BLS12_377, points_with_logs, expected_msm, naive_msm),
-        ("ed-on-bls12-377", 6, ed, ED_ON_BLS12_377, ed_points_with_logs, ed_expected_msm,
-         ed_naive_msm),
-    )
-    known = {}  # label -> (points on the card, discrete logs) of the 2^16 MSMs
-    for label, phase, cv, params, with_logs, expected, naive in curves:
+    # ---- runs of the paths: counts set to 0 just before each, read just after --
+    run_counts = {}  # run name -> its launch counts
+
+    def launches_of(counts, keys, what):
+        """The run's launches of each kernel of its path; none may be 0."""
+        got = {k: counts.get(k, 0) for k in keys}
+        missing = [k for k, v in got.items() if v == 0]
+        if missing:
+            raise AssertionError(f"{what}: kernels of the path were not launched: {missing}")
+        return got
+
+    def drive(what, run, keys, check, absent=()):
+        """One run with the counts set to 0 just before it and read just
+        after (kept as ``run_counts[what]``), its check (and no launch of the
+        kernels in ``absent``), then MODE_WARMUP + MODE_RUNS timed runs of the
+        same inputs."""
+        torch.cuda.synchronize()
+        counters.reset()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = run_counts[what] = counters.snapshot()
+        check(out)
+        launches = launches_of(counts, keys, what)
+        stray = {k: counts[k] for k in absent if counts.get(k, 0)}
+        if stray:
+            raise AssertionError(f"{what}: launched kernels that are off its path: {stray}")
+        times = []
+        for i in range(MODE_WARMUP + MODE_RUNS):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            if i >= MODE_WARMUP:
+                times.append((time.perf_counter() - t0) * 1e3)
+        total = sum(v for k, v in counts.items() if k.startswith("k"))
+        print(f"    {what}: first run {first_ms:.1f} ms; {statistics.median(times):.2f} +- "
+              f"{statistics.stdev(times):.2f} ms (median +- sigma of {MODE_RUNS} runs after "
+              f"{MODE_WARMUP} warmups) on {card}; runs {[round(t, 2) for t in times]}; launches "
+              f"{launches} ({total} kernel launches in all); host syncs {counts.get('host_sync', 0)}")
+
+    def equals_known(what, cv, want_):
+        def check(res):
+            if cv.result_to_int(res) != want_:
+                raise AssertionError(f"{what} disagrees with the known-discrete-log result")
+        return check
+
+    def small_msms(label, phase, cv, params, with_logs, expected, naive):
+        """The MSM at N = 8 and its edge cases against both host oracles."""
         # each case: scalars, indices into 8 known-log points, and the expected
         # result twice: by double-and-add per point, and from the discrete logs
         orng = random.Random(7)
@@ -496,13 +537,24 @@ def main() -> None:
         print(f"[{phase} oracle] {label}: N=8 MSM and edge cases ({', '.join(cases)}) equal both "
               "host oracles (double-and-add per point; known discrete logs)")
 
+    # ---- 3-8. each curve: small MSMs, the 2^16 MSM, timing -----------------------
+    glv = (cuda_mul.KERNEL, cuda_scalar.KERNEL)
+    finals = (cuda_curve.K4, cuda_curve.K5)
+    curves = (
+        ("bls12-377", 3, curve, BLS12_377, points_with_logs, expected_msm, naive_msm,
+         glv + (cuda_curve.K3,) + finals),
+        ("ed-on-bls12-377", 6, ed, ED_ON_BLS12_377, ed_points_with_logs, ed_expected_msm,
+         ed_naive_msm, (cuda_mul.KERNEL, cuda_mul.K8, cuda_scalar.K9, cuda_edwards.K10,
+                        cuda_edwards.K11, cuda_edwards.K12)),
+    )
+    known = {}  # label -> (int points, points on the card, discrete logs) of the 2^16 MSMs
+    for label, phase, cv, params, with_logs, expected, naive, path in curves:
+        small_msms(label, phase, cv, params, with_logs, expected, naive)
         t0 = time.perf_counter()
         pts_n, logs = with_logs(params, N, seed=SEED)
         points = cv.points_from_ints(pts_n, dev)
         setup_s = time.perf_counter() - t0
-        known[label] = (points, logs)
-        if label == "bls12-377":
-            known_ints = (pts_n, logs)
+        known[label] = (pts_n, points, logs)
         scal = cv.random_scalars(N, seed=SEED + 1, device=dev)
         torch.cuda.synchronize()
         counters.reset()
@@ -510,16 +562,10 @@ def main() -> None:
         res = cv.msm(scal, points)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
-        counts = counters.snapshot()
+        counts = run_counts[f"{label} msm 2^16"] = counters.snapshot()
         if cv.result_to_int(res) != expected(params, cv.scalar.unpack(scal.cpu()), logs):
             raise AssertionError(f"{label}: 2^{LOG_N} MSM disagrees with the known-discrete-log result")
-        for row in table:
-            key = path_keys[label].get(row["key"])
-            if key is not None:
-                row["launches"] = counts.get(key, 0)
-                if row["launches"] == 0:
-                    raise AssertionError(f"{row['id']} {row['name']} was not launched by the {label} MSM")
-        launches = {k: v for k, v in counts.items() if k.startswith("k")}
+        launches = launches_of(counts, path, f"{label} MSM")
         print(f"[{phase + 1} msm 2^{LOG_N}] {label}: result equals (sum s_i a_i mod q) G; "
               f"first run {first_ms:.1f} ms; launches {launches}; host syncs "
               f"{counts.get('host_sync', 0)}; input set-up {setup_s:.1f} s")
@@ -539,62 +585,12 @@ def main() -> None:
               f"runs {[round(t, 2) for t in times]}")
 
     # ---- 9-10. the other modes at 2^16 ---------------------------------------------
-    def launches_of(counts, keys, what):
-        """The run's launches of each kernel of its path; none may be 0."""
-        got = {k: counts.get(k, 0) for k in keys}
-        missing = [k for k, v in got.items() if v == 0]
-        if missing:
-            raise AssertionError(f"{what}: kernels of the path were not launched: {missing}")
-        return got
-
-    def drive(what, run, keys, check, absent=()):
-        """One run with the counts set to 0 just before it and read just
-        after, its check (and no launch of the kernels in ``absent``), then
-        MODE_WARMUP + MODE_RUNS timed runs of the same inputs. Returns the
-        first run's launches of the kernels in ``keys`` and ``absent``."""
-        torch.cuda.synchronize()
-        counters.reset()
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t0) * 1e3
-        counts = counters.snapshot()
-        check(out)
-        launches = launches_of(counts, keys, what)
-        stray = {k: counts[k] for k in absent if counts.get(k, 0)}
-        if stray:
-            raise AssertionError(f"{what}: launched kernels that are off its path: {stray}")
-        launches.update({k: counts.get(k, 0) for k in absent})
-        times = []
-        for i in range(MODE_WARMUP + MODE_RUNS):
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            if i >= MODE_WARMUP:
-                times.append((time.perf_counter() - t0) * 1e3)
-        total = sum(v for k, v in counts.items() if k.startswith("k"))
-        print(f"    {what}: first run {first_ms:.1f} ms; {statistics.median(times):.2f} +- "
-              f"{statistics.stdev(times):.2f} ms (median +- sigma of {MODE_RUNS} runs after "
-              f"{MODE_WARMUP} warmups) on {card}; runs {[round(t, 2) for t in times]}; launches "
-              f"{launches} ({total} kernel launches in all); host syncs {counts.get('host_sync', 0)}")
-        return launches
-
-    points, logs = known["bls12-377"]
+    pts_n, points, logs = known["bls12-377"]
     scal = curve.random_scalars(N, seed=SEED + 1, device=dev)
     want = expected_msm(BLS12_377, curve.scalar.unpack(scal.cpu()), logs)
-
-    def equals_known(what, cv, want_):
-        def check(res):
-            if cv.result_to_int(res) != want_:
-                raise AssertionError(f"{what} disagrees with the known-discrete-log result")
-        return check
-
     z = field_elems(F, N)  # random Z (< 2^376 < p, nonzero with overwhelming odds)
     proj = ProjectivePoints(F.montmul(points.x, z), F.montmul(points.y, z), z)
-    glv = (cuda_mul.KERNEL, cuda_scalar.KERNEL)
-    finals = (cuda_curve.K4, cuda_curve.K5)
     print(f"[9 modes 2^{LOG_N}] bls12-377: each result equals (sum s_i a_i mod q) G")
-    mode_launches = {}
     for what, run, keys in (
         ("msm(mode='affine')", lambda: curve.msm(scal, points, mode="affine"),
          glv + (cuda_mul.K8, cuda_curve.K7) + finals),
@@ -605,11 +601,10 @@ def main() -> None:
         ("msm_projective (random Z)", lambda: curve.msm_projective(scal, proj),
          (cuda_scalar.K9,) + finals),
     ):
-        mode_launches[what] = drive(f"bls12-377 {what}", run, keys,
-                                    equals_known(f"bls12-377 {what}", curve, want))
+        drive(f"bls12-377 {what}", run, keys, equals_known(f"bls12-377 {what}", curve, want))
     del proj
 
-    points_e, logs_e = known["ed-on-bls12-377"]
+    _, points_e, logs_e = known["ed-on-bls12-377"]
     scal_e = ed.random_scalars(N, seed=SEED + 1, device=dev)
     want_e = ed_expected_msm(ED_ON_BLS12_377, ed.scalar.unpack(scal_e.cpu()), logs_e)
     print(f"[10 modes 2^{LOG_N}] ed-on-bls12-377: the result equals (sum s_i a_i mod q) G")
@@ -648,8 +643,8 @@ def main() -> None:
             if not ok:
                 raise AssertionError(f"{label}: random_points_fast lanes differ from the host sums")
 
-        launches = drive(f"{label} random_points_fast({N})",
-                         lambda cv=cv: cv.random_points_fast(N, seed=SEED, device=dev), keys, check)
+        drive(f"{label} random_points_fast({N})",
+              lambda cv=cv: cv.random_points_fast(N, seed=SEED, device=dev), keys, check)
         pts = cv.random_points_fast(N, seed=SEED, device=dev)
         s2 = cv.random_scalars(N, seed=SEED + 2, device=dev)
         a, b = (("affine", "projective") if is_w else ("basic", "padded"))
@@ -657,46 +652,53 @@ def main() -> None:
             raise AssertionError(f"{label}: the {a} and {b} MSMs over random points disagree")
         msg = f"the {a}- and {b}-mode MSMs over them agree"
         if is_w:
-            mode_launches["random_points_fast"] = launches
             # q P == 0 on the card for the sampled lanes: 252 K6 doublings
             sub = AffinePoints(*(t.index_select(-1, sample.to(dev)) for t in pts))
             counters.reset()
             qP = W.proj_scale_const(BLS12_377.order, W.from_affine(sub))
             torch.cuda.synchronize()
-            mode_launches["subgroup check"] = launches_of(
-                counters.snapshot(), (cuda_curve.K6, cuda_curve.K4), "subgroup check")
+            counts = run_counts["bls12-377 subgroup check"] = counters.snapshot()
             if not bool(F.is_zero(qP.Z).all()):
                 raise AssertionError("random_points_fast lanes outside the prime-order subgroup")
             msg += (f"; q P = 0 for the {SAMPLE} sampled lanes (launches "
-                    f"{mode_launches['subgroup check']})")
+                    f"{launches_of(counts, (cuda_curve.K6, cuda_curve.K4), 'subgroup check')})")
         print(f"    {label}: every lane on the curve (on the card), {SAMPLE} sampled lanes equal "
               f"the host sums of their picks; {msg}")
 
     # ---- 12. the codec storage mode ------------------------------------------------
-    print(f"[12 packed 2^{LOG_N}] bls12-377 on PackedCodec rows ({Wp.codec.rows} of 31 bits a "
-          "coordinate): each result equals (sum s_i a_i mod q) G")
-    points, _ = known["bls12-377"]
-    packed_keys = (cuda_codec.K13, cuda_scalar.KERNEL) + tuple(
-        cuda_curve.K14[k] for k in (cuda_curve.K3, cuda_curve.K4, cuda_curve.K5))
-    # off the packed path: K1 (beta x runs on K13), K13 on Fma51Codec, and
-    # the K14 variants the projective pipeline does not run
-    packed_absent = (cuda_mul.KERNEL, cuda_codec.K13_FMA51) + tuple(
-        cuda_curve.K14[k] for k in (cuda_curve.K4M, cuda_curve.K6, cuda_curve.K7))
+    print(f"[12 packed 2^{LOG_N}] bls12-377 on PackedCodec rows ({curve.ops_packed.codec.rows} of "
+          "31 bits a coordinate): each result equals (sum s_i a_i mod q) G")
+    k14_path = (cuda_curve.K3, cuda_curve.K4, cuda_curve.K5)
+    k14_side = (cuda_curve.K4M, cuda_curve.K6, cuda_curve.K7)
+    codec_keys = {  # mode -> (K13 counter, K14 counters)
+        "packed": (cuda_codec.K13, cuda_curve.K14),
+        "fma51": (cuda_codec.K13_FMA51, cuda_curve.K14_FMA51),
+    }
+    all_codec = tuple(k for k13, k14 in codec_keys.values() for k in (k13, *k14.values()))
+
+    def codec_run(mode):
+        """The launches a codec mode's projective pipeline must make (K13,
+        K2, the K14 variants of K3-K5) and must not (K1: beta x runs on K13;
+        the other codec's kernels; the K14 variants of K4m, K6, K7)."""
+        k13, k14 = codec_keys[mode]
+        keys = (k13, cuda_scalar.KERNEL) + tuple(k14[k] for k in k14_path)
+        absent = (cuda_mul.KERNEL,) + tuple(k for k in all_codec if k not in keys)
+        return keys, absent
+
+    packed_keys, packed_absent = codec_run("packed")
     for what, run in (
         ("msm(mode='projective')", lambda: curve.msm(scal, points)),
         ("msm(mode='packed')", lambda: curve.msm(scal, points, mode="packed")),
         ("msm_unsafe(mode='packed')", lambda: curve.msm_unsafe(scal, points, mode="packed")),
     ):
         packed = "packed" in what
-        mode_launches[what] = drive(
-            f"bls12-377 {what}", run,
-            packed_keys if packed else (cuda_mul.KERNEL, cuda_scalar.KERNEL, cuda_curve.K3),
-            equals_known(f"bls12-377 {what}", curve, want),
-            absent=packed_absent if packed else ())
-    pts_n, logs_n = known_ints
+        drive(f"bls12-377 {what}", run,
+              packed_keys if packed else glv + (cuda_curve.K3,) + finals,
+              equals_known(f"bls12-377 {what}", curve, want),
+              absent=packed_absent if packed else all_codec)
     scs_n = curve.scalar.unpack(scal.cpu())
-    dup_pts, dup_logs = pts_n[:-1] + [pts_n[0]], logs_n[:-1] + [logs_n[0]]
-    for what, pts_i, logs_i in (("distinct points", pts_n, logs_n),
+    dup_pts, dup_logs = pts_n[:-1] + [pts_n[0]], logs[:-1] + [logs[0]]
+    for what, pts_i, logs_i in (("distinct points", pts_n, logs),
                                 ("a duplicated point", dup_pts, dup_logs)):
         t0 = time.perf_counter()
         got = compute_msm(pts_i, scs_n, mode="packed", device=dev)
@@ -706,28 +708,77 @@ def main() -> None:
         print(f"    compute_msm({N} int points and scalars, mode='packed') with {what}: equals the "
               f"known-discrete-log result; {secs:.2f} s with the int conversions")
 
-    # the new kernels' launches: per run of the path each serves first; the
-    # K14 variants no codec-mode path runs, and K13 on Fma51Codec, as the
-    # packed run's counts read them (0, checked there)
-    src_runs = {"k4m": ("msm(mode='halving')", cuda_curve.K4M),
-                "k6": ("subgroup check", cuda_curve.K6),
-                "k7": ("msm(mode='affine')", cuda_curve.K7),
-                "k8_bls": ("msm(mode='affine')", cuda_mul.K8),
-                "k13": ("msm(mode='packed')", cuda_codec.K13),
-                "k13_fma51": ("msm(mode='packed')", cuda_codec.K13_FMA51)}
-    for k in (cuda_curve.K3, cuda_curve.K4, cuda_curve.K4M, cuda_curve.K5, cuda_curve.K6,
-              cuda_curve.K7):
-        src_runs["k14_" + k.split("_")[0]] = ("msm(mode='packed')", cuda_curve.K14[k])
-    for row in table:
-        src_run = src_runs.get(row["key"])
-        if src_run is not None:
-            row["launches"] = mode_launches[src_run[0]][src_run[1]]
+    # ---- 13-14. BLS12-381 and Pallas ------------------------------------------------
+    for phase, params, cv, codec_mode in ((13, BLS12_381, c381, "packed"), (14, PALLAS, cpal, "fma51")):
+        label = params.label
+        small_msms(label, phase, cv, params, points_with_logs, expected_msm, naive_msm)
+        t0 = time.perf_counter()
+        pts_c, logs_c = points_with_logs(params, N, seed=SEED)
+        points_c = cv.points_from_ints(pts_c, dev)
+        setup_s = time.perf_counter() - t0
+        scal_c = cv.random_scalars(N, seed=SEED + 1, device=dev)
+        want_c = expected_msm(params, cv.scalar.unpack(scal_c.cpu()), logs_c)
+        print(f"[{phase} msm 2^{LOG_N}] {label}: each result equals (sum s_i a_i mod q) G "
+              f"(input set-up {setup_s:.1f} s)")
+        for mode, (keys, absent) in (("projective", (glv + (cuda_curve.K3,) + finals, all_codec)),
+                                     (codec_mode, codec_run(codec_mode))):
+            what = f"{label} msm(mode='{mode}')"
+            drive(what, lambda mode=mode: cv.msm(scal_c, points_c, mode=mode), keys,
+                  equals_known(what, cv, want_c), absent=absent)
+        # the other modes and point generation at N = 8
+        pts8, logs8 = points_with_logs(params, 8, seed=SEED + 3)
+        points8 = cv.points_from_ints(pts8, dev)
+        scal8 = cv.random_scalars(8, seed=SEED + 3, device=dev)
+        want8 = expected_msm(params, cv.scalar.unpack(scal8.cpu()), logs8)
+        F8 = cv.ops.F
+        z8 = field_elems(F8, 8)
+        proj8 = ProjectivePoints(F8.montmul(points8.x, z8), F8.montmul(points8.y, z8), z8)
+        others = [
+            ("msm(mode='affine')", lambda: cv.msm(scal8, points8, mode="affine"),
+             glv + (cuda_mul.K8, cuda_curve.K7) + finals, ()),
+            ("msm_unsafe(mode='affine')", lambda: cv.msm_unsafe(scal8, points8, mode="affine"),
+             glv + (cuda_mul.K8, cuda_curve.K7) + finals, ()),
+            ("msm(mode='halving')", lambda: cv.msm(scal8, points8, mode="halving"),
+             glv + (cuda_curve.K4M,) + finals, ()),
+            ("msm_projective (random Z)", lambda: cv.msm_projective(scal8, proj8),
+             (cuda_scalar.K9,) + finals, ()),
+        ]
+        if codec_mode != "packed":  # Pallas: the packed mode at N = 8
+            others.append(("msm(mode='packed')", lambda: cv.msm(scal8, points8, mode="packed"),
+                           *codec_run("packed")))
+        for what, run, keys, absent in others:
+            what = f"{label} N=8 {what}"
+            drive(what, run, keys, equals_known(what, cv, want8), absent=absent)
 
-    # one entry per kernel and path: its main-path shape's numbers (the first
-    # row, the widest), its worst error
-    unset = sorted({row["id"] for row in table if row["launches"] is None})
-    if unset:
-        raise AssertionError(f"no path run counted the launches of {unset}")
+        def on_curve(pts, cv=cv, label=label):
+            if not bool(cv.ops.affine_is_on_curve(pts).all()):
+                raise AssertionError(f"{label}: random_points_fast lanes off the curve")
+
+        drive(f"{label} N=8 random_points_fast", lambda cv=cv: cv.random_points_fast(8, seed=SEED, device=dev),
+              (cuda_curve.K7, cuda_mul.KERNEL, cuda_mul.K8), on_curve)
+        rp = cv.random_points_fast(8, seed=SEED, device=dev)
+        counters.reset()
+        qP = cv.ops.proj_scale_const(params.order, cv.ops.from_affine(rp))
+        torch.cuda.synchronize()
+        counts = run_counts[f"{label} N=8 subgroup check"] = counters.snapshot()
+        if not bool(cv.ops.F.is_zero(qP.Z).all()):
+            raise AssertionError(f"{label}: random_points_fast lanes outside the prime-order subgroup")
+        print(f"    {label}: random_points_fast(8) on the curve and in the prime-order subgroup (q P = 0 "
+              f"on the card; launches {launches_of(counts, (cuda_curve.K6, cuda_curve.K4), label)})")
+
+    # ---- the kernel table --------------------------------------------------------------
+    # each row's launches: its counter in the run it names; 0 only where the
+    # row is on no path of that run (the K14 variants of K4m, K6 and K7 in a
+    # codec mode, K13 on the Edwards field's Fma51Codec rows)
+    for row in table:
+        row["launches"] = run_counts[row["run"]].get(row["counter"], 0)
+    unlaunched = sorted({row["key"] for row in table if row["launches"] == 0} - {
+        row["key"] for row in table if row["id"] in ("K14-K4m", "K14-K6", "K14-K7")} - {"k13_fma51"})
+    if unlaunched:
+        raise AssertionError(f"kernels no run of their path launched: {unlaunched}")
+
+    # one entry per kernel, field shape and storage: its main-path shape's
+    # numbers (the first row, the widest), its worst error
     kernels = {}
     for row in table:
         entry = kernels.setdefault(row["key"], {

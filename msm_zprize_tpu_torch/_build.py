@@ -27,7 +27,7 @@ from pathlib import Path
 
 __all__ = [
     "BuildInfo", "library", "check", "ptrs", "ints", "stream_of",
-    "on_cpu", "rows", "flags", "field_words", "codec_arg",
+    "on_cpu", "rows", "flags", "field_shape", "field_words", "codec_arg",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -41,23 +41,14 @@ NVCC_FLAGS = (
 # host buffers read by the C side before it launches.
 _P, _I, _W = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ENTRIES = {
-    # (ptrs, lds, width, n, [int arguments], [host words], consts, stream)
+    # (ptrs, lds, width, shape, [int arguments], [host words], consts, stream)
     "msm_montmul": [_P, _P, _W, _I, _P, _P],
     "msm_montmul_rows": [_P, _P, _W, _I, _I, _P, _P],
     "msm_exp_const": [_P, _P, _W, _I, _P, _P, _P],
     "msm_glv_digits": [_P, _P, _W, _I, _I, _P, _P],
     "msm_simple_digits": [_P, _P, _W, _I, _I, _I, _P],
-    "msm_aff_pair_add": [_P, _P, _W, _I, _P, _P],
-    "msm_proj_add": [_P, _P, _W, _I, _I, _P, _P],
-    "msm_proj_double_k": [_P, _P, _W, _I, _I, _P, _P],
-    "msm_proj_double": [_P, _P, _W, _I, _P, _P],
-    "msm_proj_add_mixed": [_P, _P, _W, _I, _P, _P],
-    # K14: the five entries above on row-codec storage (csrc/curve_codec.cu)
-    "msm_codec_aff_pair_add": [_P, _P, _W, _I, _P, _P],
-    "msm_codec_proj_add": [_P, _P, _W, _I, _I, _P, _P],
-    "msm_codec_proj_double_k": [_P, _P, _W, _I, _I, _P, _P],
-    "msm_codec_proj_double": [_P, _P, _W, _I, _P, _P],
-    "msm_codec_proj_add_mixed": [_P, _P, _W, _I, _P, _P],
+    # K3-K7 and K14: (ptrs, lds, width, shape, kernel, codec, arg, consts, stream)
+    "msm_curve": [_P, _P, _W, _I, _I, _I, _I, _P, _P],
     "msm_ed_pair_add": [_P, _P, _W, _I, _P, _P],
     "msm_ed_add": [_P, _P, _W, _I, _I, _P, _P],
     "msm_ed_double_k": [_P, _P, _W, _I, _I, _P, _P],
@@ -67,10 +58,14 @@ _ENTRIES = {
     "msm_glv_const_words": [],
 }
 
-# Field shapes the kernels are built for (csrc/field.cuh): limb count n ->
-# 32-bit register words NW. R = 2^(12 n) = 2^(32 NW + tail bits), and values
-# below 4p must fit NW words.
-FIELD_WORDS = {32: 12, 22: 8}
+# Field shapes the kernels are built for (csrc/field.cuh::ShapeTable): ID ->
+# (limb count n, 32-bit register words NW, carry). R = 2^(12 n) = 2^(32 NW +
+# tail bits). A shape without carry takes fields with 4p < 2^(32 NW); the
+# carry shape those with 2p < 2^(32 NW) <= 4p (Pallas), whose additions and
+# loads keep the bit above the top word. n alone does not name a shape
+# (ed-on-bls12-377 and Pallas both have n = 22): field_shape derives the ID
+# from (n, p), and the C entries take the ID.
+FIELD_SHAPES = {1: (32, 12, False), 2: (22, 8, False), 3: (33, 12, False), 4: (22, 8, True)}
 
 
 @dataclass(frozen=True)
@@ -206,26 +201,47 @@ def flags(t, W: int, name: str) -> None:
         raise ValueError(f"{name}: expected contiguous int32 ({W},), got {t.dtype} {tuple(t.shape)}")
 
 
+def _fits(p: int, nw: int, carry: bool) -> bool:
+    top = 1 << (32 * nw)
+    return 2 * p < top <= 4 * p if carry else 4 * p < top
+
+
+def _shape_name(sid: int) -> str:
+    n, nw, carry = FIELD_SHAPES[sid]
+    bound = f"2p < 2^{32 * nw} <= 4p" if carry else f"4p < 2^{32 * nw}"
+    return f"n = {n} (R = 2^{12 * n}, {bound})"
+
+
+@functools.cache
+def field_shape(F) -> int:
+    """The ID of the kernels' field shape for a MontgomeryFp (csrc/field.cuh),
+    derived from its limb layout and p; other fields are refused with the
+    shapes that exist."""
+    for sid, (n, nw, carry) in FIELD_SHAPES.items():
+        if F.w == 12 and F.n == n and _fits(F.p, nw, carry):
+            return sid
+    raise ValueError(
+        "CUDA field kernels take w = 12 limbs in one of the shapes "
+        f"{'; '.join(map(_shape_name, FIELD_SHAPES))}; this field has w = {F.w}, n = {F.n}, "
+        f"a {F.p.bit_length()}-bit p"
+    )
+
+
 @functools.cache
 def field_words(F, curve_mont: tuple[int, int] = (0, 0), small: int = 0) -> ctypes.Array:
     """FieldConsts words (csrc/field.cuh) for a MontgomeryFp, packed once per
     field and curve constants and read only by the host: p, 2p, R mod p, the
     two Montgomery-form curve constants, -p^-1 mod 2^32 and one plain-integer
     curve constant. The kernels compute with the limb code's own R = 2^(12 n)
-    for the field shapes in FIELD_WORDS; other fields are refused."""
-    nw = FIELD_WORDS.get(F.n) if F.w == 12 else None
-    if nw is None or 4 * F.p >= 1 << (32 * nw):
-        raise ValueError(
-            "CUDA field kernels take w = 12 limbs with n = 32 (R = 2^384, 4p < 2^384) "
-            f"or n = 22 (R = 2^264, 4p < 2^256); this field has w = {F.w}, n = {F.n}, "
-            f"a {F.p.bit_length()}-bit p (ROADMAP queue 1, item 15: more field shapes)"
-        )
+    for the field shapes in FIELD_SHAPES; other fields are refused."""
+    sid = field_shape(F)
+    nw = FIELD_SHAPES[sid][1]
     words = []
     for v in (F.p, 2 * F.p, F.mont_one, *curve_mont):
         words += [(v >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
     words += [(-pow(F.p, -1, 1 << 32)) % (1 << 32), small]
     lib, _ = library()
-    if len(words) != lib.msm_field_const_words(F.n):
+    if len(words) != lib.msm_field_const_words(sid):
         raise RuntimeError("FieldConsts layout mismatch between Python and csrc/field.cuh")
     return ints(words, ctypes.c_uint32)
 
@@ -240,13 +256,12 @@ def codec_arg(F, codec) -> int:
 
     cid = codec_id(codec)
     lib, _ = library()
-    if F.w != 12 or lib.msm_codec_rows(F.n, cid) != codec.rows:
-        built = [f"{name} ({lib.msm_codec_rows(n, i)} rows) on n = {n}"
-                 for n in FIELD_WORDS for name, i in CODEC_IDS.items()
-                 if lib.msm_codec_rows(n, i) > 0]
+    if lib.msm_codec_rows(field_shape(F), cid) != codec.rows:
+        built = [f"{name} ({lib.msm_codec_rows(sid, i)} rows) on {_shape_name(sid)}"
+                 for sid in FIELD_SHAPES for name, i in CODEC_IDS.items()
+                 if lib.msm_codec_rows(sid, i) > 0]
         raise ValueError(
             f"no CUDA kernel for {type(codec).__name__} ({codec.rows} rows) on a field of "
-            f"w = {F.w}, n = {F.n}: the kernels take {', '.join(built)} "
-            "(ROADMAP queue 1, item 15: more field shapes)"
+            f"w = {F.w}, n = {F.n}: the kernels take {'; '.join(built)}"
         )
     return cid

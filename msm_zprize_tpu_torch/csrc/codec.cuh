@@ -14,19 +14,18 @@
 // rows, row r holding bits [C::off(r), C::off(r) + C::width(r)), each row
 // masked to its width and non-negative; row r of element `lane` is at
 // ptr[r*ld + lane].
-//   Packed31<ROWS>: dense 31-bit rows (PackedCodec): 13 rows for
-//                   BLS12-377's base field (403 bits of capacity against
-//                   the core's 384-bit registers), 9 for ed-on-bls12-377's;
+//   Packed31<ROWS>: dense 31-bit rows (PackedCodec): 13 rows for the
+//                   base fields of BLS12-377 and BLS12-381 (403 bits of
+//                   capacity against the core's 384-bit registers), 9 for
+//                   those of ed-on-bls12-377 and Pallas (279 against 256);
 //   Fma51Rows:      five 51-bit limbs as (26, 25)-bit halves, the top pair
 //                   (26, 26): 10 rows, 256 bits (Fma51Codec; p < 2^255 -
-//                   2^206, so only the 8-word shape Fp22 here).
+//                   2^206, so only the 8-word shapes Fp22 and Fp22c here).
 // Stored values are < 2p < 2^(32 NW), so row bits at or above 32 NW are 0
 // on valid lanes and are dropped on decode; lanes whose rows hold garbage
 // (the engines' clamped-gather lanes) decode to some value below 2^(32 NW)
 // that the formulas select away, and the decode reads exactly C::ROWS rows.
 #pragma once
-
-#include <tuple>
 
 #include "field.cuh"
 
@@ -81,8 +80,9 @@ __device__ __forceinline__ void store_rows(const Fe<S>& a, int32_t* __restrict__
 // load: operand i of a lane as a value < 2p; store: an output; copy: operand
 // i's stored rows to output o bit for bit (pass-through lanes).
 
-template <class S>
+template <class S_>
 struct LimbStore {
+  using S = S_;
   static __device__ __forceinline__ Fe<S> load(const Operands& ops, int i, int64_t lane,
                                                const FieldConsts<S>& fc) {
     return load_reduced(ops, i, lane, fc);
@@ -96,8 +96,9 @@ struct LimbStore {
   }
 };
 
-template <class S, class C>
+template <class S_, class C>
 struct RowStore {
+  using S = S_;
   static __device__ __forceinline__ Fe<S> load(const Operands& ops, int i, int64_t lane,
                                                const FieldConsts<S>& fc) {
     return cond_sub(load_rows<S, C>(reinterpret_cast<const int32_t*>(ops.p[i]), ops.ld[i], lane),
@@ -114,8 +115,9 @@ struct RowStore {
 
 // ---- the one table of the row storages the kernels are built for ------------
 // Each entry: a field shape, a codec id and the row layout of that codec on
-// that field. K13 (montmul.cu) is built for every entry, K14
-// (curve_codec.cu) for the first; msm_codec_rows reads the rows from here.
+// that field. K13 (montmul.cu) is built for every entry, K14 (the curve
+// units, curve.cuh) for every entry of a Weierstrass field (Fp32, Fp33,
+// Fp22c); msm_codec_rows reads the rows from here.
 
 template <class S_, int ID, class C_>
 struct CodecEntry {
@@ -126,20 +128,24 @@ struct CodecEntry {
 
 using CodecTable = std::tuple<CodecEntry<Fp32, CODEC_PACKED31, Packed31<13>>,
                               CodecEntry<Fp22, CODEC_PACKED31, Packed31<9>>,
-                              CodecEntry<Fp22, CODEC_FMA51, Fma51Rows>>;
+                              CodecEntry<Fp22, CODEC_FMA51, Fma51Rows>,
+                              CodecEntry<Fp33, CODEC_PACKED31, Packed31<13>>,
+                              CodecEntry<Fp22c, CODEC_PACKED31, Packed31<9>>,
+                              CodecEntry<Fp22c, CODEC_FMA51, Fma51Rows>>;
 
 template <class Fn, class... E>
-int with_codec_in(int n, int codec, Fn& fn, std::tuple<E...>*) {
+int with_codec_in(int shape, int codec, Fn& fn, std::tuple<E...>*) {
   int out = -1;
-  (void)((E::S::NL == n && E::id == codec && ((out = fn(E{})), true)) || ...);
+  (void)((E::S::ID == shape && E::id == codec && ((out = fn(E{})), true)) || ...);
   return out;
 }
 
-// fn(E{}) for the table's entry E of a field of n limbs and the codec id
-// `codec` (fn returns a non-negative int), -1 when the table has none.
+// fn(E{}) for the table's entry E of the field shape `shape` (an ID of
+// field.cuh) and the codec id `codec` (fn returns a non-negative int), -1
+// when the table has none.
 template <class Fn>
-int with_codec(int n, int codec, Fn fn) {
-  return with_codec_in(n, codec, fn, static_cast<CodecTable*>(nullptr));
+int with_codec(int shape, int codec, Fn fn) {
+  return with_codec_in(shape, codec, fn, static_cast<CodecTable*>(nullptr));
 }
 
 }  // namespace msm

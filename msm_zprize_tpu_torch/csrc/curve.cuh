@@ -1,11 +1,18 @@
 // K3, K4, K4m, K5, K6, K7: complete short-Weierstrass (a = 0) point
 // formulas, one lane per thread, on Montgomery-form coordinates, and their
-// launchers. Each kernel is a template on its storage policy St
-// (codec.cuh): LimbStore<Fp32> reads and writes (32, W) 12-bit limb tensors
-// (curve.cu: K3-K7); RowStore<Fp32, Packed31<13>> reads and writes (13, W)
-// 31-bit row tensors (curve_codec.cu: K14, the same formulas on
-// PackedCodec storage). Shared by the two translation units so that each
-// builds in its own nvcc process.
+// launcher. Each kernel is a template on its storage policy St (codec.cuh),
+// which names the field shape St::S: LimbStore<S> reads and writes (NL, W)
+// 12-bit limb tensors (K3-K7), RowStore<S, C> (C::ROWS, W) row-codec
+// tensors (K14, the same formulas on PackedCodec or Fma51Codec storage).
+// The storages built, one curve unit (an nvcc process) each:
+//   curve.cu              LimbStore<Fp32>           BLS12-377
+//   curve_codec.cu        RowStore<Fp32, P31<13>>   BLS12-377 packed
+//   curve_381.cu          LimbStore<Fp33>           BLS12-381
+//   curve_381_codec.cu    RowStore<Fp33, P31<13>>   BLS12-381 packed
+//   curve_pallas.cu       LimbStore<Fp22c>          Pallas
+//   curve_pallas_codec.cu RowStore<Fp22c, P31<9>>, RowStore<Fp22c, Fma51Rows>
+//                                                   Pallas packed and fma51
+// and curve.cu's msm_curve entry dispatches on (shape ID, codec id) to them.
 //
 // Replace the formula bodies of msm_zprize_tpu/curves/pallas_curve.py's one
 // curve pallas_call (_curve_call):
@@ -25,7 +32,8 @@
 //   K7 proj_add_mixed <- CurveKernels.proj_add_mixed, _proj_add_mixed_body
 //                        (rcb8: RCB Alg. 8, projective + affine, 11 muls;
 //                        where the affine operand is infinity, P1 passes)
-// with 3b applied as a small-integer multiply (3b = 3 on BLS12-377).
+// with 3b applied as a small-integer multiply (3b = 3 on BLS12-377, 12 on
+// BLS12-381, 15 on Pallas).
 //
 // Bounds: every load reduces to < 2p, and field.cuh keeps every
 // intermediate < 2p, so outputs are canonical limbs < 2p. That is also each
@@ -34,9 +42,10 @@
 // pallas_curve.py:318, is the argument in field.cuh). The 3b products
 // (rcb7's mul_b3(t2) and mul_b3(Y3), rcb8's mul_b3(Z1) and mul_b3(Y3)) are
 // f_small: a double-and-add chain of f_add, each of which takes values < 2p
-// and returns values < 2p, so their inputs and outputs stay < 2p for any
-// 3b. The TPU bodies needed an interval proof (_b3_small_safe) because their
-// additions were carry-free; here every addition reduces.
+// and returns values < 2p (on Pallas's CARRY shape through the carry out of
+// the top word), so their inputs and outputs stay < 2p for any 3b. The TPU
+// bodies needed an interval proof (_b3_small_safe) because their additions
+// were carry-free; here every addition reduces.
 //
 // Pass-through lanes (K4m with mask == 0, K7 with inf2 set) copy P1's
 // stored rows (limbs, or codec rows) unchanged, bit for bit, and skip the
@@ -50,9 +59,10 @@
 // the memory latency of the loads: measured at the MSM's widths, the wide
 // kernels run at 0.3-0.46 TB/s and their time follows their bytes (13-row
 // storage halves K3's and K4's time), far above the bound set by the
-// ~300-IMAD CIOS products (K3: 9 per lane). The design is the plain one:
-// one thread per lane, 128-thread blocks, no spills (the -Xptxas -v lines
-// in the build log record them).
+// ~300-IMAD CIOS products (K3: 9 per lane). The 8-word shape of Pallas
+// needs fewer registers and so fits more warps. The design is the plain
+// one: one thread per lane, 128-thread blocks (the -Xptxas -v lines in the
+// build log record registers and spills).
 #pragma once
 
 #include "codec.cuh"
@@ -60,20 +70,17 @@
 namespace msm {
 namespace wei {
 
-// BLS12-377's base field only: the Weierstrass curves of the other field
-// shapes are not ported (ROADMAP queue 1)
-using S = Fp32;
-using Fe = msm::Fe<S>;
-using FieldConsts = msm::FieldConsts<S>;
-
-__device__ __forceinline__ Fe mul_b3(const Fe& a, const FieldConsts& fc) {
+template <class S>
+__device__ __forceinline__ Fe<S> mul_b3(const Fe<S>& a, const FieldConsts<S>& fc) {
   return f_small(a, fc.small, fc);
 }
 
 // RCB Alg. 7, complete addition, a = 0.
-__device__ __forceinline__ void rcb7(const Fe& X1, const Fe& Y1, const Fe& Z1,
-                                     const Fe& X2, const Fe& Y2, const Fe& Z2,
-                                     Fe& X3, Fe& Y3, Fe& Z3, const FieldConsts& fc) {
+template <class S>
+__device__ __forceinline__ void rcb7(const Fe<S>& X1, const Fe<S>& Y1, const Fe<S>& Z1,
+                                     const Fe<S>& X2, const Fe<S>& Y2, const Fe<S>& Z2,
+                                     Fe<S>& X3, Fe<S>& Y3, Fe<S>& Z3, const FieldConsts<S>& fc) {
+  using Fe = msm::Fe<S>;
   Fe t0 = mont_mul(X1, X2, fc);
   Fe t1 = mont_mul(Y1, Y2, fc);
   Fe t2 = mont_mul(Z1, Z2, fc);
@@ -94,7 +101,9 @@ __device__ __forceinline__ void rcb7(const Fe& X1, const Fe& Y1, const Fe& Z1,
 }
 
 // RCB Alg. 9, complete doubling, a = 0 (valid on the odd-order subgroup).
-__device__ __forceinline__ void rcb9(Fe& X, Fe& Y, Fe& Z, const FieldConsts& fc) {
+template <class S>
+__device__ __forceinline__ void rcb9(Fe<S>& X, Fe<S>& Y, Fe<S>& Z, const FieldConsts<S>& fc) {
+  using Fe = msm::Fe<S>;
   Fe t0 = mont_square(Y, fc);
   Fe z3 = f_add(t0, t0, fc);
   z3 = f_add(z3, z3, fc);
@@ -115,9 +124,11 @@ __device__ __forceinline__ void rcb9(Fe& X, Fe& Y, Fe& Z, const FieldConsts& fc)
 }
 
 // RCB Alg. 8, complete mixed addition (Z2 = 1), a = 0.
-__device__ __forceinline__ void rcb8(const Fe& X1, const Fe& Y1, const Fe& Z1,
-                                     const Fe& X2, const Fe& Y2,
-                                     Fe& X3, Fe& Y3, Fe& Z3, const FieldConsts& fc) {
+template <class S>
+__device__ __forceinline__ void rcb8(const Fe<S>& X1, const Fe<S>& Y1, const Fe<S>& Z1,
+                                     const Fe<S>& X2, const Fe<S>& Y2,
+                                     Fe<S>& X3, Fe<S>& Y3, Fe<S>& Z3, const FieldConsts<S>& fc) {
+  using Fe = msm::Fe<S>;
   Fe t0 = mont_mul(X1, X2, fc);
   Fe t1 = mont_mul(Y1, Y2, fc);
   Fe t3 = mont_mul(f_add(X2, Y2, fc), f_add(X1, Y1, fc), fc);
@@ -139,9 +150,11 @@ __device__ __forceinline__ void rcb8(const Fe& X1, const Fe& Y1, const Fe& Z1,
 template <class St>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 aff_pair_add_kernel(const __grid_constant__ Operands ops, int64_t W,
-                    const __grid_constant__ FieldConsts fc) {
+                    const __grid_constant__ FieldConsts<typename St::S> fc) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= W) return;
+  using S = typename St::S;
+  using Fe = msm::Fe<S>;
   const bool v1 = load_flag(ops, 3, lane), v2 = load_flag(ops, 7, lane);
   const bool s1 = load_flag(ops, 2, lane), s2 = load_flag(ops, 6, lane);
   const Fe zero = fe_zero<S>(), one = fe_from<S>(fc.one);
@@ -173,9 +186,11 @@ aff_pair_add_kernel(const __grid_constant__ Operands ops, int64_t W,
 template <class St, bool MASKED>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 proj_add_kernel(const __grid_constant__ Operands ops, int64_t W,
-                const __grid_constant__ FieldConsts fc) {
+                const __grid_constant__ FieldConsts<typename St::S> fc) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= W) return;
+  using S = typename St::S;
+  using Fe = msm::Fe<S>;
   constexpr int out = MASKED ? 7 : 6;
   if (MASKED && !load_flag(ops, 6, lane)) {
     for (int i = 0; i < 3; ++i) St::copy(ops, i, out + i, lane);
@@ -195,9 +210,11 @@ proj_add_kernel(const __grid_constant__ Operands ops, int64_t W,
 template <class St>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 proj_double_k_kernel(const __grid_constant__ Operands ops, int64_t W, int k,
-                     const __grid_constant__ FieldConsts fc) {
+                     const __grid_constant__ FieldConsts<typename St::S> fc) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= W) return;
+  using S = typename St::S;
+  using Fe = msm::Fe<S>;
   Fe X = St::load(ops, 0, lane, fc);
   Fe Y = St::load(ops, 1, lane, fc);
   Fe Z = St::load(ops, 2, lane, fc);
@@ -212,9 +229,11 @@ proj_double_k_kernel(const __grid_constant__ Operands ops, int64_t W, int k,
 template <class St>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 proj_double_kernel(const __grid_constant__ Operands ops, int64_t W,
-                   const __grid_constant__ FieldConsts fc) {
+                   const __grid_constant__ FieldConsts<typename St::S> fc) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= W) return;
+  using S = typename St::S;
+  using Fe = msm::Fe<S>;
   Fe X = St::load(ops, 0, lane, fc);
   Fe Y = St::load(ops, 1, lane, fc);
   Fe Z = St::load(ops, 2, lane, fc);
@@ -229,9 +248,11 @@ proj_double_kernel(const __grid_constant__ Operands ops, int64_t W,
 template <class St>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 proj_add_mixed_kernel(const __grid_constant__ Operands ops, int64_t W,
-                      const __grid_constant__ FieldConsts fc) {
+                      const __grid_constant__ FieldConsts<typename St::S> fc) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= W) return;
+  using S = typename St::S;
+  using Fe = msm::Fe<S>;
   if (load_flag(ops, 5, lane)) {  // Q is infinity: P1 + Q = P1
     for (int i = 0; i < 3; ++i) St::copy(ops, i, 6 + i, lane);
     return;
@@ -246,54 +267,60 @@ proj_add_mixed_kernel(const __grid_constant__ Operands ops, int64_t W,
 }
 
 
-// ---- launchers: one per kernel, for a storage policy ----------------------------
+// ---- one launcher for every kernel of a storage ---------------------------------
 
-template <class St>
-int launch_aff_pair_add(const uint64_t* ptrs, const int64_t* lds, int64_t W,
-                        const uint32_t* consts, cudaStream_t s) {
-  aff_pair_add_kernel<St><<<grid_for(W), BLOCK_THREADS, 0, s>>>(
-      operands_from_host(ptrs, lds, 11), W, field_consts_from_host<S>(consts));
-  return static_cast<int>(cudaGetLastError());
-}
+// The kernel ids of msm_curve (curves/cuda_curve.py::KERNEL_IDS).
+constexpr int CURVE_K3 = 3, CURVE_K4 = 4, CURVE_K5 = 5, CURVE_K6 = 6, CURVE_K7 = 7;
 
-// masked != 0 (K4m): ptrs/lds hold the mask (a per-lane flag) after the 6 inputs.
+// Launch curve kernel `kernel` on storage St; ptrs/lds hold its operands in
+// the order of its `ops:` line above (K4m: the mask after the 6 inputs); arg
+// is K4's masked flag (K4m when set) or K5's k. Refuses field constants that
+// do not fit St's shape.
 template <class St>
-int launch_proj_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, int masked,
-                    const uint32_t* consts, cudaStream_t s) {
+int launch_curve(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W, int arg,
+                 const uint32_t* consts, cudaStream_t s) {
+  using S = typename St::S;
+  if (!fits<S>(consts)) return static_cast<int>(cudaErrorInvalidValue);
   const auto fc = field_consts_from_host<S>(consts);
-  if (masked) {
-    proj_add_kernel<St, true><<<grid_for(W), BLOCK_THREADS, 0, s>>>(
-        operands_from_host(ptrs, lds, 10), W, fc);
-  } else {
-    proj_add_kernel<St, false><<<grid_for(W), BLOCK_THREADS, 0, s>>>(
-        operands_from_host(ptrs, lds, 9), W, fc);
+  const unsigned grid = grid_for(W);
+  switch (kernel) {
+    case CURVE_K3:
+      aff_pair_add_kernel<St><<<grid, BLOCK_THREADS, 0, s>>>(operands_from_host(ptrs, lds, 11), W,
+                                                              fc);
+      break;
+    case CURVE_K4:
+      if (arg) {
+        proj_add_kernel<St, true><<<grid, BLOCK_THREADS, 0, s>>>(
+            operands_from_host(ptrs, lds, 10), W, fc);
+      } else {
+        proj_add_kernel<St, false><<<grid, BLOCK_THREADS, 0, s>>>(
+            operands_from_host(ptrs, lds, 9), W, fc);
+      }
+      break;
+    case CURVE_K5:
+      proj_double_k_kernel<St><<<grid, BLOCK_THREADS, 0, s>>>(operands_from_host(ptrs, lds, 6), W,
+                                                               arg, fc);
+      break;
+    case CURVE_K6:
+      proj_double_kernel<St><<<grid, BLOCK_THREADS, 0, s>>>(operands_from_host(ptrs, lds, 6), W,
+                                                             fc);
+      break;
+    case CURVE_K7:
+      proj_add_mixed_kernel<St><<<grid, BLOCK_THREADS, 0, s>>>(operands_from_host(ptrs, lds, 9), W,
+                                                                fc);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class St>
-int launch_proj_double_k(const uint64_t* ptrs, const int64_t* lds, int64_t W, int k,
-                         const uint32_t* consts, cudaStream_t s) {
-  proj_double_k_kernel<St><<<grid_for(W), BLOCK_THREADS, 0, s>>>(
-      operands_from_host(ptrs, lds, 6), W, k, field_consts_from_host<S>(consts));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class St>
-int launch_proj_double(const uint64_t* ptrs, const int64_t* lds, int64_t W,
-                       const uint32_t* consts, cudaStream_t s) {
-  proj_double_kernel<St><<<grid_for(W), BLOCK_THREADS, 0, s>>>(
-      operands_from_host(ptrs, lds, 6), W, field_consts_from_host<S>(consts));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class St>
-int launch_proj_add_mixed(const uint64_t* ptrs, const int64_t* lds, int64_t W,
-                          const uint32_t* consts, cudaStream_t s) {
-  proj_add_mixed_kernel<St><<<grid_for(W), BLOCK_THREADS, 0, s>>>(
-      operands_from_host(ptrs, lds, 9), W, field_consts_from_host<S>(consts));
-  return static_cast<int>(cudaGetLastError());
-}
+// Each curve unit defines one of these: launch_curve on its storage
+// (curve.cu's msm_curve names the shape and codec each takes).
+using CurveUnit = int(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W, int arg,
+                      const uint32_t* consts, cudaStream_t s);
+CurveUnit limbs_fp32, packed_fp32, limbs_fp33, packed_fp33, limbs_fp22c, packed_fp22c,
+    fma51_fp22c;
 
 }  // namespace wei
 }  // namespace msm

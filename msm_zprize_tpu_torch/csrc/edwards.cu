@@ -142,23 +142,24 @@ ed_double_k_kernel(const __grid_constant__ Operands ops, int64_t W, int k,
 }  // namespace ed
 }  // namespace msm
 
-// Each entry point takes the field's limb count n and refuses any but 22.
-extern "C" int msm_ed_pair_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, int n,
+// Each entry point takes a field shape's ID (field.cuh) and refuses any but
+// Fp22's, and field constants that do not fit it (a Pallas field: n = 22 too).
+extern "C" int msm_ed_pair_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, int shape,
                                const uint32_t* consts, void* stream) {
   using namespace msm;
   using namespace msm::ed;
-  if (n != S::NL) return static_cast<int>(cudaErrorInvalidValue);
+  if (shape != S::ID || !fits<S>(consts)) return static_cast<int>(cudaErrorInvalidValue);
   ed_pair_add_kernel<<<grid_for(W), BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       operands_from_host(ptrs, lds, 12), W, field_consts_from_host<S>(consts));
   return static_cast<int>(cudaGetLastError());
 }
 
 // masked != 0: ptrs/lds hold the mask (a per-lane flag) after the 8 inputs.
-extern "C" int msm_ed_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, int n,
+extern "C" int msm_ed_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, int shape,
                           int masked, const uint32_t* consts, void* stream) {
   using namespace msm;
   using namespace msm::ed;
-  if (n != S::NL) return static_cast<int>(cudaErrorInvalidValue);
+  if (shape != S::ID || !fits<S>(consts)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto fc = field_consts_from_host<S>(consts);
   if (masked) {
@@ -171,11 +172,11 @@ extern "C" int msm_ed_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, i
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int msm_ed_double_k(const uint64_t* ptrs, const int64_t* lds, int64_t W, int n,
+extern "C" int msm_ed_double_k(const uint64_t* ptrs, const int64_t* lds, int64_t W, int shape,
                                int k, const uint32_t* consts, void* stream) {
   using namespace msm;
   using namespace msm::ed;
-  if (n != S::NL) return static_cast<int>(cudaErrorInvalidValue);
+  if (shape != S::ID || !fits<S>(consts)) return static_cast<int>(cudaErrorInvalidValue);
   ed_double_k_kernel<<<grid_for(W), BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       operands_from_host(ptrs, lds, 8), W, k, field_consts_from_host<S>(consts));
   return static_cast<int>(cudaGetLastError());

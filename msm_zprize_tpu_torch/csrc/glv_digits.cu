@@ -3,7 +3,8 @@
 //
 // Replaces msm_zprize_tpu/fields/pallas_scalar.py::glv_digits_pallas (body
 // _scalar_kernel). Per scalar lane s (22 canonical 12-bit limbs of the
-// BLS12-377 scalar field):
+// scalar field; BLS12-377's, BLS12-381's and Pallas's GlvScalar modules all
+// have the sizes below, and their constants come at run time):
 //   u_i = floor(s * m_i / 2^(12*K0))            (multiply-high, i = 0, 1)
 //   s0  = s - (x0*v00 + x1*v10),  s1 = -(x0*v01 + x1*v11)   mod 2^(12*n_acc)
 //   (sign_i, |s_i|) from the two's-complement top bit
@@ -33,7 +34,7 @@
 
 namespace msm {
 
-constexpr int NS = 22;    // scalar limbs (bits(q) = 253)
+constexpr int NS = 22;    // scalar limbs (bits(q) = 253 or 255)
 constexpr int NH = 11;    // limbs of |s_i|
 constexpr int NACC = 13;  // two's-complement accumulator limbs
 constexpr int K0L = 23;   // multiply-high shift, in limbs

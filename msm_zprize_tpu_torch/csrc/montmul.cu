@@ -31,13 +31,15 @@
 // _montmul51_kernel: decode rows to 12-bit digits, the interval-tracked
 // CIOS, encode with a conditional-subtract chain). The output is already
 // canonical and < 2p, so the encode is a pure repack. Instantiated for
-// PackedCodec on Fp32 (BLS12-377: 13 rows; beta * x of the packed MSM) and
-// for PackedCodec (9 rows) and Fma51Codec (10 rows) on Fp22. Bound as K1:
-// bytes and launches at 65,536 lanes, with 13 rows a value instead of 32.
+// every entry of codec.cuh's table: PackedCodec on Fp32 and Fp33 (13 rows;
+// beta * x of the packed MSMs of BLS12-377 and BLS12-381), PackedCodec (9
+// rows) and Fma51Codec (10 rows) on Fp22 and Fp22c (Pallas: beta * x of
+// its fma51 MSM on Fma51Codec). Bound as K1: bytes and launches at 65,536
+// lanes, with 13 (10) rows a value instead of 32 (22).
 //
 // K1 and K8 are instantiated for every field shape of field.cuh; the entry
-// points take the field's limb count n (and K13 the codec id) and refuse
-// any other.
+// points take the shape's ID (and K13 the codec id) and refuse any other,
+// and field constants that do not fit the shape named.
 #include "codec.cuh"
 
 namespace msm {
@@ -50,8 +52,8 @@ montmul_kernel(const int32_t* __restrict__ x, int64_t ldx,
                const __grid_constant__ FieldConsts<S> fc) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= W) return;
-  const Fe<S> a = load_fe<S>(x, ldx, lane);
-  const Fe<S> b = load_fe<S>(y, ldy, lane);
+  const Fe<S> a = load_fe<S>(x, ldx, lane, fc);
+  const Fe<S> b = load_fe<S>(y, ldy, lane, fc);
   store_fe(mont_mul(a, b, fc), out, ldo, lane);
 }
 
@@ -82,7 +84,7 @@ exp_kernel(const int32_t* __restrict__ x, int64_t ldx,
            const __grid_constant__ ExpBits e, const __grid_constant__ FieldConsts<S> fc) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= W) return;
-  const Fe<S> a = load_fe<S>(x, ldx, lane);
+  const Fe<S> a = load_fe<S>(x, ldx, lane, fc);
   Fe<S> acc = fe_from<S>(fc.one);
   for (int i = e.nbits - 1; i >= 0; --i) {
     acc = mont_square(acc, fc);
@@ -122,63 +124,57 @@ int launch_exp(const uint64_t* ptrs, const int64_t* lds, int64_t W, const ExpBit
 
 }  // namespace msm
 
-// ptrs: {x, y, out} device pointers; lds: {ldx, ldy, ldo} row strides.
-extern "C" int msm_montmul(const uint64_t* ptrs, const int64_t* lds, int64_t W, int n,
+static int refused(int code) { return code < 0 ? static_cast<int>(cudaErrorInvalidValue) : code; }
+
+// ptrs: {x, y, out} device pointers; lds: {ldx, ldy, ldo} row strides;
+// shape: a field shape's ID (field.cuh).
+extern "C" int msm_montmul(const uint64_t* ptrs, const int64_t* lds, int64_t W, int shape,
                            const uint32_t* consts, void* stream) {
   using namespace msm;
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (n) {
-    case Fp32::NL: return launch_montmul<Fp32>(ptrs, lds, W, consts, s);
-    case Fp22::NL: return launch_montmul<Fp22>(ptrs, lds, W, consts, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return refused(with_field(shape, consts, [&](auto f) {
+    return launch_montmul<decltype(f)>(ptrs, lds, W, consts, s);
+  }));
 }
 
 // K13. ptrs: {x, y, out}; lds: row strides; codec: a codec id of the table
 // in codec.cuh (msm_codec_rows says how many rows each pair takes).
-extern "C" int msm_montmul_rows(const uint64_t* ptrs, const int64_t* lds, int64_t W, int n,
+extern "C" int msm_montmul_rows(const uint64_t* ptrs, const int64_t* lds, int64_t W, int shape,
                                 int codec, const uint32_t* consts, void* stream) {
   using namespace msm;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int code = with_codec(n, codec, [&](auto e) {
+  return refused(with_codec(shape, codec, [&](auto e) {
     using E = decltype(e);
+    if (!fits<typename E::S>(consts)) return -1;
     return launch_montmul_rows<typename E::S, typename E::C>(ptrs, lds, W, consts, s);
-  });
-  return code < 0 ? static_cast<int>(cudaErrorInvalidValue) : code;
+  }));
 }
 
 // ptrs: {x, out}; lds: {ldx, ldo}; ebits: EXP_WORDS words of e, LSB first,
 // then its bit length.
-extern "C" int msm_exp_const(const uint64_t* ptrs, const int64_t* lds, int64_t W, int n,
+extern "C" int msm_exp_const(const uint64_t* ptrs, const int64_t* lds, int64_t W, int shape,
                              const uint32_t* ebits, const uint32_t* consts, void* stream) {
   using namespace msm;
   ExpBits e;
   std::memcpy(&e, ebits, sizeof e);
   if (e.nbits < 0 || e.nbits > 32 * EXP_WORDS) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (n) {
-    case Fp32::NL: return launch_exp<Fp32>(ptrs, lds, W, e, consts, s);
-    case Fp22::NL: return launch_exp<Fp22>(ptrs, lds, W, e, consts, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return refused(with_field(shape, consts, [&](auto f) {
+    return launch_exp<decltype(f)>(ptrs, lds, W, e, consts, s);
+  }));
 }
 
 // Host-side layout checks: words of FieldConsts the Python side must pack for
-// a field of n limbs (-1: no kernel for that n), and of the exponent.
-extern "C" int msm_field_const_words(int n) {
-  using namespace msm;
-  switch (n) {
-    case Fp32::NL: return field_const_words<Fp32>();
-    case Fp22::NL: return field_const_words<Fp22>();
-    default: return -1;
-  }
+// a field shape (-1: no shape has that ID), and of the exponent.
+extern "C" int msm_field_const_words(int shape) {
+  return msm::with_shape(shape, [](auto f) { return msm::field_const_words<decltype(f)>(); });
 }
 
-// Rows a value of a field of n limbs takes in the codec `codec`, from the
-// table in codec.cuh, -1 for none: the Python side checks its codec's row
-// count against it and names the table's entries when it refuses one.
-extern "C" int msm_codec_rows(int n, int codec) {
-  return msm::with_codec(n, codec, [](auto e) { return decltype(e)::C::ROWS; });
+// Rows a value of a field shape takes in the codec `codec`, from the table
+// in codec.cuh, -1 for none: the Python side checks its codec's row count
+// against it and names the table's entries when it refuses one.
+extern "C" int msm_codec_rows(int shape, int codec) {
+  return msm::with_codec(shape, codec, [](auto e) { return decltype(e)::C::ROWS; });
 }
 
 extern "C" int msm_exp_words() { return sizeof(msm::ExpBits) / sizeof(uint32_t); }

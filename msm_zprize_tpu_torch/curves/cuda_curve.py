@@ -1,5 +1,6 @@
-"""K3-K7 wrappers (``csrc/curve.cu``; K14, the same kernels on row-codec
-storage: ``csrc/curve_codec.cu``) and their plain PyTorch twins.
+"""K3-K7 wrappers (``csrc/curve.cuh``, one C entry ``msm_curve`` for every
+curve unit ``csrc/curve*.cu``; K14 is the same kernels on row-codec
+storage) and their plain PyTorch twins.
 
 Replace the formula bodies of ``msm_zprize_tpu/curves/pallas_curve.py``:
 
@@ -22,10 +23,14 @@ Every curve ops object ``W`` says how it stores a coordinate in
 ``W.storage`` (a :class:`Storage`): 12-bit limbs (``WeierstrassOps``), or,
 for K14, the rows of a codec (``curves/weierstrass51.py``), where field
 operands are ``(codec.rows, *batch)`` rows and the wrappers launch the same
-formulas on that storage (``csrc/curve_codec.cu``, counted under the
-``k14_*`` keys). The twins decode the rows to digit planes, run the
-formulas and encode the result; the pass-through lanes keep the caller's
-rows bit for bit.
+formulas on that storage (counted under the ``k14_*`` keys on
+``PackedCodec``, ``k14_fma51_*`` on ``Fma51Codec``). The kernels are built
+for BLS12-377 (limbs and 13 packed rows), BLS12-381 (the same) and Pallas
+(limbs, 9 packed rows, 10 Fma51 pair rows); the wrappers name the field's
+shape (``_build.field_shape``) and the codec, and the C entry refuses any
+other pair. The twins decode the rows to digit planes, run the formulas
+and encode the result; the pass-through lanes keep the caller's rows bit
+for bit.
 """
 
 from __future__ import annotations
@@ -36,35 +41,42 @@ import torch
 
 from .. import _build
 from ..counters import COUNTS
+from ..fields.codec import CODEC_IDS, codec_id
 
 __all__ = [
-    "Storage", "aff_pair_add", "proj_add", "proj_double_k", "proj_double", "proj_add_mixed",
+    "Storage", "K14", "K14_FMA51", "aff_pair_add", "proj_add", "proj_double_k", "proj_double",
+    "proj_add_mixed",
     "aff_pair_add_plain", "proj_add_plain", "proj_double_k_plain", "proj_double_plain",
     "proj_add_mixed_plain",
 ]
 
 K3, K4, K4M, K5 = "k3_aff_pair_add", "k4_proj_add", "k4m_proj_add_masked", "k5_proj_double_k"
 K6, K7 = "k6_proj_double", "k7_proj_add_mixed"
-# the K14 variant of each kernel: the same formula on row-codec storage
+# the K14 variant of each kernel: the same formula on PackedCodec rows, and
+# on Fma51Codec rows
 K14 = {k: "k14_" + k for k in (K3, K4, K4M, K5, K6, K7)}
+K14_FMA51 = {k: "k14_fma51_" + k for k in (K3, K4, K4M, K5, K6, K7)}
+# the kernel ids of the C entry msm_curve (csrc/curve.cuh::CURVE_K3..K7)
+KERNEL_IDS = {K3: 3, K4: 4, K4M: 4, K5: 5, K6: 6, K7: 7}
 
 
 @dataclass(frozen=True)
 class Storage:
     """How a curve ops object stores a coordinate, as the wrappers read it:
-    ``rows`` int32 rows per value, the name prefixes of its C entry points
-    and of its launch counters, and its row codec (None: 12-bit Montgomery
-    limbs, which the formulas take as they are)."""
+    ``rows`` int32 rows per value, the name prefix of its launch counters,
+    and its row codec (None: 12-bit Montgomery limbs, which the formulas
+    take as they are)."""
 
     rows: int
-    entry: str = "msm_"
     counter: str = ""
     codec: object = None
 
     @classmethod
     def of_codec(cls, codec) -> "Storage":
-        """K14's storage: ``codec``'s rows, the ``msm_codec_*`` entries."""
-        return cls(codec.rows, "msm_codec_", "k14_", codec)
+        """K14's storage: ``codec``'s rows, counted under ``k14_*`` keys
+        (``k14_fma51_*`` on Fma51Codec)."""
+        return cls(codec.rows, "k14_fma51_" if codec_id(codec) == CODEC_IDS["Fma51Codec"]
+                   else "k14_", codec)
 
     def decode(self, F, a):
         """A stored field operand as the digit planes the twins compute on."""
@@ -75,11 +87,13 @@ class Storage:
         return a if self.codec is None else self.codec.from_digits(F, a)
 
     def words(self, W) -> object:
-        """The FieldConsts words of W's kernels, once a codec's rows are
-        checked against the kernels' codec table."""
-        if self.codec is not None:
-            _build.codec_arg(W.F, self.codec)
+        """The FieldConsts words of W's kernels."""
         return _build.field_words(W.F, (W.b3_mont, 0), W.b3_small)
+
+    def codec_arg(self, F) -> int:
+        """The codec id msm_curve takes (0: limbs), once a codec's rows are
+        checked against the kernels' codec table."""
+        return 0 if self.codec is None else _build.codec_arg(F, self.codec)
 
 
 # ---- plain twins (the JAX jnp-path formulas) ---------------------------------
@@ -259,28 +273,29 @@ def flag_rows(flags, width):
 
 def launch(F, words, name, entry, ins, lds, width, batch, n_out, extra=(), n=None):
     """Allocate n_out (n, width) outputs (n: F.n limbs unless given, the
-    rows of a codec), launch ``entry``, count it, and return the outputs in
-    the operands' batch shape."""
+    rows of a codec), launch ``entry`` on F's field shape, count it, and
+    return the outputs in the operands' batch shape."""
     n = F.n if n is None else n
     device = ins[0].device
     outs = [torch.empty((n, width), dtype=torch.int32, device=device) for _ in range(n_out)]
     if width:
         lib, _ = _build.library()
         code = getattr(lib, entry)(
-            _build.ptrs(*ins, *outs), _build.ints(lds + [width] * n_out), width, F.n, *extra,
-            words, _build.stream_of(outs[0]),
+            _build.ptrs(*ins, *outs), _build.ints(lds + [width] * n_out), width,
+            _build.field_shape(F), *extra, words, _build.stream_of(outs[0]),
         )
         _build.check(code, name)
         COUNTS[name] += 1
     return tuple(o.reshape((n,) + tuple(batch)) for o in outs)
 
 
-def _launch(W, name, entry, ins, lds, width, batch, extra=()):
-    """Launch the curve kernel ``entry`` on W's storage, counted under
-    ``name`` with the storage's prefixes."""
+def _launch(W, name, ins, lds, width, batch, arg=0):
+    """Launch the curve kernel ``name`` on W's storage (``arg``: K4's masked
+    flag, K5's k), counted under ``name`` with the storage's prefix."""
     st = W.storage
-    return launch(W.F, st.words(W), st.counter + name, st.entry + entry, ins, lds, width, batch,
-                  3, extra, n=st.rows)
+    extra = (KERNEL_IDS[name], st.codec_arg(W.F), arg)
+    return launch(W.F, st.words(W), st.counter + name, "msm_curve", ins, lds, width, batch, 3,
+                  extra, n=st.rows)
 
 
 def aff_pair_add(W, x1, y1, s1, v1, x2, y2, s2, v2):
@@ -294,7 +309,7 @@ def aff_pair_add(W, x1, y1, s1, v1, x2, y2, s2, v2):
     fl = flag_rows((s1, v1, s2, v2), width)
     ins = (fx1, fy1, fl[0], fl[1], fx2, fy2, fl[2], fl[3])
     lds = [lds[0], lds[1], 0, 0, lds[2], lds[3], 0, 0]
-    return _launch(W, K3, "aff_pair_add", ins, lds, width, batch)
+    return _launch(W, K3, ins, lds, width, batch)
 
 
 def proj_add(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
@@ -308,8 +323,8 @@ def proj_add(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
     if mask is not None:
         ins = ins + flag_rows((mask,), width)
         lds = lds + [0]
-    return _launch(W, K4 if mask is None else K4M, "proj_add", ins, lds, width, batch,
-                   extra=(int(mask is not None),))
+    return _launch(W, K4 if mask is None else K4M, ins, lds, width, batch,
+                   arg=int(mask is not None))
 
 
 def proj_double(W, X1, Y1, Z1):
@@ -318,7 +333,7 @@ def proj_double(W, X1, Y1, Z1):
         return proj_double_plain(W, X1, Y1, Z1)
     batch = X1.shape[1:]
     ins, lds, width = field_rows(W.storage.rows, (X1, Y1, Z1), batch)
-    return _launch(W, K6, "proj_double", ins, lds, width, batch)
+    return _launch(W, K6, ins, lds, width, batch)
 
 
 def proj_add_mixed(W, X1, Y1, Z1, x2, y2, inf2):
@@ -330,7 +345,7 @@ def proj_add_mixed(W, X1, Y1, Z1, x2, y2, inf2):
     batch = X1.shape[1:]
     ins, lds, width = field_rows(W.storage.rows, (X1, Y1, Z1, x2, y2), batch)
     ins = ins + flag_rows((inf2,), width)
-    return _launch(W, K7, "proj_add_mixed", ins, lds + [0], width, batch)
+    return _launch(W, K7, ins, lds + [0], width, batch)
 
 
 def proj_double_k(W, X1, Y1, Z1, k: int):
@@ -341,4 +356,4 @@ def proj_double_k(W, X1, Y1, Z1, k: int):
         return proj_double_k_plain(W, X1, Y1, Z1, k)
     batch = X1.shape[1:]
     ins, lds, width = field_rows(W.storage.rows, (X1, Y1, Z1), batch)
-    return _launch(W, K5, "proj_double_k", ins, lds, width, batch, extra=(k,))
+    return _launch(W, K5, ins, lds, width, batch, arg=k)

@@ -1,12 +1,13 @@
-"""Curve parameters of the port: the published BLS12-377 G1 and
-ed-on-bls12-377 constants.
+"""Curve parameters of the port: the published BLS12-377 G1, BLS12-381 G1,
+Pallas and ed-on-bls12-377 constants.
 
 The port carries its own copy so that it, and any script that drives it,
 needs nothing of the JAX package. The values equal
-``msm_zprize_tpu/curves/params.py::BLS12_377`` and ``ED_ON_BLS12_377``
-field for field (checked in ``tests/test_torch_msm.py`` and
-``tests/test_torch_edwards.py``); any object with the same attributes, the
-JAX package's parameter classes included, is accepted wherever the port
+``msm_zprize_tpu/curves/params.py::BLS12_377``, ``BLS12_381``, ``PALLAS``
+and ``ED_ON_BLS12_377`` field for field (checked in
+``tests/test_torch_msm.py``, ``tests/test_torch_edwards.py`` and
+``tests/test_torch_bls12_381_pallas.py``); any object with the same attributes,
+the JAX package's parameter classes included, is accepted wherever the port
 takes curve parameters.
 """
 
@@ -14,7 +15,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["WeierstrassParams", "EdwardsParams", "BLS12_377", "ED_ON_BLS12_377"]
+__all__ = [
+    "WeierstrassParams", "EdwardsParams", "BLS12_377", "BLS12_381", "PALLAS", "ED_ON_BLS12_377",
+    "WEIERSTRASS_CURVES",
+]
 
 
 @dataclass(frozen=True)
@@ -59,6 +63,36 @@ BLS12_377 = WeierstrassParams(
     beta=0x1AE3A4617C510EABC8756BA8F8C524EB8882A75CC9BC8E359064EE822FB5BFFD1E945779FFFFFFFFFFFFFFFFFFFFFFF,
 )
 
+# y^2 = x^3 + 4; lambda = z^2 - 1 for the curve parameter -z = 0xD201000000010000
+BLS12_381 = WeierstrassParams(
+    label="bls12-381",
+    modulus=0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB,
+    order=0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001,
+    cofactor=0x396C8C005555E1568C00AAAB0000AAAB,
+    b=4,
+    generator=(
+        0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83FF97A1AEFFB3AF00ADB22C6BB,
+        0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1,
+    ),
+    lambda_=0xD201000000010000**2 - 1,
+    beta=0x1A0111EA397FE699EC02408663D4DE85AA0D857D89759AD4897D29650FB85F9B409427EB4F49FFFD8BFD00000000AAAC,
+)
+
+# y^2 = x^3 + 5 over p = 2^254 + ~2^125; lambda = 5^((q-1)/3) mod q and
+# beta = (5^((p-1)/3))^2 mod p, derived here as the JAX package derives them
+_p_pallas = 0x40000000000000000000000000000000224698FC094CF91B992D30ED00000001
+_q_pallas = 0x40000000000000000000000000000000224698FC0994A8DD8C46EB2100000001
+PALLAS = WeierstrassParams(
+    label="pallas",
+    modulus=_p_pallas,
+    order=_q_pallas,
+    cofactor=1,
+    b=5,
+    generator=(1, 0x1B74B5A30A12937C53DFA9F06378EE548F655BD4333D477119CF7A23CAED2ABB),
+    lambda_=pow(5, (_q_pallas - 1) // 3, _q_pallas),
+    beta=pow(pow(5, (_p_pallas - 1) // 3, _p_pallas), 2, _p_pallas),
+)
+
 # base field: BLS12-377's scalar field
 ED_ON_BLS12_377 = EdwardsParams(
     label="ed-on-bls12-377",
@@ -71,3 +105,5 @@ ED_ON_BLS12_377 = EdwardsParams(
         0x9A20DF36571AC3CD906B256080BA8454453C177AAF3131BB50A67BF1A806781,
     ),
 )
+
+WEIERSTRASS_CURVES = {c.label: c for c in (BLS12_377, BLS12_381, PALLAS)}

@@ -11,10 +11,10 @@ CUDA tensors launch the kernels or raise; CPU tensors take the plain twins.
 
 Exactly the surface the projective pipeline of ``msm/batched_affine.py``
 calls on its curve ops, so ``Weierstrass.msm(..., mode="packed")`` runs the
-flagship MSM on 13-row ``PackedCodec`` storage for BLS12-377. The
-``Fma51Codec`` layout takes only p < 2^255 - 2^206 (the Pallas curve); the
-CUDA curve kernels for it wait on that curve's field shape (ROADMAP queue 1,
-item 15).
+projective MSM on ``PackedCodec`` storage (13 rows on BLS12-377 and
+BLS12-381, 9 on Pallas) and ``mode="fma51"`` on 10 ``Fma51Codec`` pair
+rows. The ``Fma51Codec`` layout takes only p < 2^255 - 2^206: of the
+curves supported, Pallas.
 """
 
 from __future__ import annotations

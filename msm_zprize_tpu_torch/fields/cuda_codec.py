@@ -2,8 +2,10 @@
 (``csrc/montmul.cu``, ``montmul_rows_kernel``), and its plain twin.
 
 K13 replaces ``msm_zprize_tpu/fields/fma51_pallas.py::montmul51_pallas``. On
-the packed MSM's path it computes beta * x for the GLV endomorphism over
-all N points, on 13-row ``PackedCodec`` storage. CUDA tensors launch the
+the codec modes' paths it computes beta * x for the GLV endomorphism over
+all N points: on ``PackedCodec`` rows (13 on BLS12-377 and BLS12-381, 9 on
+Pallas) in ``mode="packed"``, on 10 ``Fma51Codec`` pair rows in Pallas's
+``mode="fma51"``. CUDA tensors launch the
 kernel; CPU tensors run ``montmul_rows_plain``: decode to digit planes,
 ``MontgomeryFp.montmul_plain`` (the twin of K1), encode. Both give the same
 integer, x*y*R^-1 mod p below 2p with R = 2^(12 n), in the codec's rows.
@@ -19,8 +21,8 @@ from .codec import CODEC_IDS
 
 __all__ = ["montmul_rows", "montmul_rows_plain"]
 
-# launch counters: K13 on PackedCodec rows (the packed MSM's beta * x), and
-# on Fma51Codec rows (on no MSM path of this port yet)
+# launch counters: K13 on PackedCodec rows (beta * x of the packed MSMs), and
+# on Fma51Codec rows (beta * x of Pallas's fma51 MSM)
 K13, K13_FMA51 = "k13_montmul_rows", "k13_montmul_rows_fma51"
 
 
@@ -44,7 +46,8 @@ def montmul_rows(F, codec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return out
     lib, _ = _build.library()
     code = lib.msm_montmul_rows(
-        _build.ptrs(x, y, out), _build.ints(lds), W, F.n, cid, words, _build.stream_of(x)
+        _build.ptrs(x, y, out), _build.ints(lds), W, _build.field_shape(F), cid, words,
+        _build.stream_of(x),
     )
     name = K13_FMA51 if cid == CODEC_IDS["Fma51Codec"] else K13
     _build.check(code, name)

@@ -2,8 +2,8 @@
 (``csrc/montmul.cu``).
 
 K1 replaces ``msm_zprize_tpu/fields/pallas_mul.py::montmul_pallas``. On the
-BLS12-377 main path it computes beta * x for the GLV endomorphism over all
-N points; on the Edwards path it carries ``batch_inverse``. K8 replaces
+Weierstrass main paths (BLS12-377, BLS12-381, Pallas) it computes beta * x
+for the GLV endomorphism over all N points; on the Edwards path it carries ``batch_inverse``. K8 replaces
 ``exp_const_pallas``: x^e in one launch, the Fermat inverse at the bottom of
 ``batch_inverse``. CUDA tensors launch the kernels; CPU tensors run the
 plain twins ``MontgomeryFp.montmul_plain`` (the JAX conv path's algorithm)
@@ -28,10 +28,12 @@ K8 = "k8_exp_const"
 def montmul(F, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x*y*R^-1 mod p for (n, W) int32 limb tensors (values < 4p; CUDA
     operands may have strided limb rows). Output (n, W): canonical limbs,
-    value < 2p."""
+    value < 2p; the twin's integer, except on a field with 4p > 2^(32 NW)
+    (Pallas), whose kernel reduces inputs of 2p and above first (equal mod
+    p)."""
     if _build.on_cpu(x, y):
         return F.montmul_plain(x, y)
-    n, W = x.shape[0], x.shape[-1]
+    n, W = F.n, x.shape[-1]
     lds = [_build.rows(x, n, W, "x"), _build.rows(y, n, W, "y"), W]
     words = _build.field_words(F)
     out = torch.empty((n, W), dtype=torch.int32, device=x.device)
@@ -39,7 +41,8 @@ def montmul(F, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return out
     lib, _ = _build.library()
     code = lib.msm_montmul(
-        _build.ptrs(x, y, out), _build.ints(lds), W, n, words, _build.stream_of(x)
+        _build.ptrs(x, y, out), _build.ints(lds), W, _build.field_shape(F), words,
+        _build.stream_of(x),
     )
     _build.check(code, KERNEL)
     COUNTS[KERNEL] += 1
@@ -53,7 +56,7 @@ def exp_const(F, x: torch.Tensor, e: int) -> torch.Tensor:
         raise ValueError("exp_const needs e >= 0")
     if _build.on_cpu(x):
         return F.exp_const_plain(x, e)
-    n, W = x.shape[0], x.shape[-1]
+    n, W = F.n, x.shape[-1]
     lds = [_build.rows(x, n, W, "x"), W]
     words = _build.field_words(F)
     lib, _ = _build.library()
@@ -65,8 +68,8 @@ def exp_const(F, x: torch.Tensor, e: int) -> torch.Tensor:
     if W == 0:
         return out
     code = lib.msm_exp_const(
-        _build.ptrs(x, out), _build.ints(lds), W, n, _build.ints(ebits, ctypes.c_uint32),
-        words, _build.stream_of(x),
+        _build.ptrs(x, out), _build.ints(lds), W, _build.field_shape(F),
+        _build.ints(ebits, ctypes.c_uint32), words, _build.stream_of(x),
     )
     _build.check(code, K8)
     COUNTS[K8] += 1

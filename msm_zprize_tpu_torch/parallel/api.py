@@ -138,8 +138,8 @@ class Weierstrass:
             if self.params.modulus >= FMA51_BOUND:
                 raise ValueError(
                     f"mode='fma51' needs p < 2^255 - 2^206 (the 51x5 layout's 255-bit ceiling); "
-                    f"{self.label}'s p has {self.params.modulus.bit_length()} bits. Its curve in "
-                    "the JAX package is Pallas, whose CUDA field shape is ROADMAP queue 1, item 15"
+                    f"{self.label}'s p has {self.params.modulus.bit_length()} bits. Of the curves "
+                    "supported, only Pallas fits it; use mode='packed' for any p"
                 )
             self._ops51 = Fma51WeierstrassOps(self.params)
         return self._ops51

@@ -1,11 +1,13 @@
 """Profile one MSM path of the port on the card.
 
-    python3 -m msm_zprize_tpu_torch.profile_msm [--curve ed-on-bls12-377] [--log-n 16] [--path PATH]
+    python3 -m msm_zprize_tpu_torch.profile_msm [--curve CURVE] [--log-n 16] [--path PATH]
 
-PATH is the curve's default MSM mode (``projective`` or ``padded``, the
-default), another mode (``affine``, ``unsafe``, ``halving``, ``packed``
-(BLS12-377 on 13-row PackedCodec storage); ``basic``),
-``msm_projective`` (BLS12-377, the same points with random Z) or
+CURVE is ``ed-on-bls12-377`` (the default), ``bls12-377``, ``bls12-381`` or
+``pallas``. PATH is the curve's default MSM mode (``projective`` or
+``padded``, the default), another mode (Weierstrass ``affine``, ``unsafe``,
+``halving``, ``packed`` (PackedCodec row storage), ``fma51`` (Pallas on
+Fma51Codec pair rows); Edwards ``basic``), ``msm_projective`` (Weierstrass,
+the same points with random Z) or
 ``random_points`` (``random_points_fast``, host table included). Prints,
 each number beside the card's name and power limit as ``nvidia-smi``
 reports them:
@@ -38,7 +40,7 @@ from collections import defaultdict
 import torch
 
 from .counters import COUNTS
-from .curves.params import BLS12_377, ED_ON_BLS12_377
+from .curves.params import ED_ON_BLS12_377, WEIERSTRASS_CURVES
 from .curves.weierstrass import ProjectivePoints
 from .msm import basic, batched_affine, engine
 from .msm.common import window_size
@@ -64,7 +66,7 @@ def _sync_ms(fn, reps: int = 10):
 def _stages(label, cv, scalars, points, log_n):
     """Synchronised stage walls of one MSM: prep, accumulation (prep
     included), reduction, Horner."""
-    if label == "bls12-377":
+    if label in WEIERSTRASS_CURVES:
         c = window_size("batched-affine", log_n)
         prep = lambda: batched_affine.glv_prep(cv.ops, cv.scalar, scalars, points, c)
         acc = lambda: batched_affine.accumulate_glv_projective(cv.ops, cv.scalar, scalars, points, c)
@@ -85,11 +87,12 @@ def _stages(label, cv, scalars, points, log_n):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--curve", default="ed-on-bls12-377", choices=["ed-on-bls12-377", "bls12-377"])
+    ap.add_argument("--curve", default="ed-on-bls12-377",
+                    choices=["ed-on-bls12-377", *WEIERSTRASS_CURVES])
     ap.add_argument("--log-n", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--path", default=None, choices=[
-        "projective", "affine", "unsafe", "halving", "packed", "msm_projective", "padded",
+        "projective", "affine", "unsafe", "halving", "packed", "fma51", "msm_projective", "padded",
         "basic", "random_points"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -98,15 +101,16 @@ def main(argv=None) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     N = 1 << args.log_n
-    if args.curve == "bls12-377":
-        cv = Weierstrass.create(BLS12_377)
-        pts, _ = points_with_logs(BLS12_377, N, seed=args.seed)
+    if args.curve in WEIERSTRASS_CURVES:
+        params = WEIERSTRASS_CURVES[args.curve]
+        cv = Weierstrass.create(params)
+        pts, _ = points_with_logs(params, N, seed=args.seed)
     else:
         cv = TwistedEdwards.create(ED_ON_BLS12_377)
         pts, _ = ed_points_with_logs(ED_ON_BLS12_377, N, seed=args.seed)
     points = cv.points_from_ints(pts, dev)
     batches = [cv.random_scalars(N, seed=args.seed + 1 + i, device=dev) for i in range(25)]
-    default = "projective" if args.curve == "bls12-377" else "padded"
+    default = "projective" if args.curve in WEIERSTRASS_CURVES else "padded"
     path = args.path or default
     if path == "unsafe":
         run = lambda s: cv.msm_unsafe(s, points, mode="affine")

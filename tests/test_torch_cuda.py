@@ -9,22 +9,29 @@ configures JAX:
 Every test carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is False (decided inside the fixture). Widths
 are odd (ragged last block) and some operands are strided slices, which
-the kernels read in place. Tolerance: K2 and K9 bit-exact; K1 limb-exact
-(the Montgomery product is one integer) on both field shapes; K3-K8 and
-K10-K12 exact mod p, and the pass-through lanes of K4m and K7 bit for bit;
-the halving layout on int32 CUDA tensors bit-exact against the CPU; K13
-on PackedCodec (n = 32 and 22) and Fma51Codec (n = 22) rows and the K14
-variants of K3-K7 on PackedCodec rows exact mod p with every output below
-2p, their pass-through lanes bit for bit.
+the kernels read in place. Each Weierstrass curve (BLS12-377, BLS12-381
+with n = 33, Pallas with n = 22 and 4p > 2^256) the same way. Tolerance: K2
+and K9 bit-exact; K1 limb-exact (the Montgomery product is one integer)
+where 4p < 2^(32 NW), mod p on Pallas (also on inputs in [2^256, 4p), which
+its kernel reduces first); K3-K8 and K10-K12 exact mod p, with operands at
+2p - 1 whose sums cross 2^256 on Pallas, and the pass-through lanes of K4m
+and K7 bit for bit; the halving layout on int32 CUDA tensors bit-exact
+against the CPU; K13 and the K14 variants of K3-K7 on every codec storage
+(PackedCodec on each curve, Fma51Codec on Pallas; K13 also on both codecs
+of the n = 22 Edwards field) exact mod p with every output below 2p, their
+pass-through lanes bit for bit. An Fp22 and a Pallas launch on the same
+limbs take different shape IDs, and the C entries refuse a Pallas field
+under Fp22's.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from msm_zprize_tpu_torch import _build
 from msm_zprize_tpu_torch.counters import COUNTS
 from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
-from msm_zprize_tpu_torch.curves.params import BLS12_377, ED_ON_BLS12_377
+from msm_zprize_tpu_torch.curves.params import BLS12_377, BLS12_381, ED_ON_BLS12_377, PALLAS
 from msm_zprize_tpu_torch.curves.weierstrass import ProjectivePoints
 from msm_zprize_tpu_torch.fields import cuda_codec, cuda_mul
 from msm_zprize_tpu_torch.fields.codec import Fma51Codec, PackedCodec
@@ -51,11 +58,6 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.fixture(scope="module")
-def curve():
-    return Weierstrass.create(BLS12_377)
-
-
 def _elems(dev, rng, width=WIDTH, rows=32):
     """Random field limbs with value < 2^376 < p (rows = 32) or < 2^252 < p
     (rows = 22)."""
@@ -71,58 +73,133 @@ def _rows_equal(F, codec, got, want):
             and torch.equal(F._sub_const_select(g, F.two_p_limbs), g))
 
 
-def test_kernels_match_plain_twins(dev, curve):
-    """Each kernel against its twin, then a 2^10 MSM of each curve and each
-    mode on the card that launches every kernel of its path and equals its
-    known-discrete-log result, and random_points_fast on both curves (one
-    test item: the CPU suite's wall time follows its item count)."""
-    W = curve.ops
-    F, S = W.F, curve.scalar
-    rng = np.random.default_rng(1)
+def _vals(G, dev, rng, width, edges=(), bound=None):
+    """(n, width) Montgomery-form limbs of values uniform below ``bound``
+    (default p), the ``edges`` first."""
+    bound = G.p if bound is None else bound
+    vals = list(edges) + [int.from_bytes(rng.bytes(56), "little") % bound
+                          for _ in range(width - len(edges))]
+    return torch.as_tensor(G.pack(vals, montgomery=False), device=dev)
 
-    # K1, also on a strided operand; a wrong dtype is refused
-    x, y = _elems(dev, rng), _elems(dev, rng)
-    assert torch.equal(cuda_mul.montmul(F, x, y), F.montmul_plain(x, y))
+
+def _weierstrass_checks(dev, rng, params):
+    """One Weierstrass curve: K1 (also on a strided operand; limb-exact on
+    the shapes with 4p < 2^(32 NW), mod p on Pallas, whose kernel reduces
+    inputs of 2p and above), K8, K2 at two window sizes, K3-K7 on limbs and
+    on each codec storage (K4 and K4m also on strided halves of one slot
+    block; 2p - 1 and 2p - 2 among the operands, sums past 2^256 on Pallas),
+    K13 on each codec; then every mode's 2^10 MSM against its
+    known-discrete-log result with its path's launches, and
+    ``random_points_fast``."""
+    cv = Weierstrass.create(params)
+    W, F, S = cv.ops, cv.ops.F, cv.scalar
+    p = F.p
+    carry = _build.FIELD_SHAPES[_build.field_shape(F)][2]
+    edges = (2 * p - 1, 2 * p - 2, p, 1, 0)
+    x, y = _vals(F, dev, rng, WIDTH, edges), _vals(F, dev, rng, WIDTH, edges[::-1])
     wide = torch.cat([x, y], dim=1)
-    assert torch.equal(cuda_mul.montmul(F, wide[:, :WIDTH], y), F.montmul_plain(x, y))
+    big = _vals(F, dev, rng, WIDTH, (4 * p - 1, (1 << 256) + 5), bound=4 * p)  # K1 takes < 4p
+    for a, b in ((x, y), (wide[:, :WIDTH], y), (big, x), (big, big)):
+        got, want = cuda_mul.montmul(F, a, b), F.montmul_plain(a, b)
+        if carry:
+            got, want = F.fully_reduce(got), F.fully_reduce(want)
+        assert torch.equal(got, want), params.label
     with pytest.raises(ValueError):
         cuda_mul.montmul(F, x.to(torch.int64), y)
-
-    # K2 at two window sizes
+    for e in (0, 5, p - 2):
+        assert torch.equal(F.fully_reduce(cuda_mul.exp_const(F, x[:, :64], e)),
+                           F.fully_reduce(F.exp_const_plain(x[:, :64], e))), e
     for c in (8, 12):
-        s = curve.random_scalars(WIDTH, seed=c, device=dev)
+        s = cv.random_scalars(WIDTH, seed=c, device=dev)
         K = -(-(S.max_bits + 1) // c)
         got, want = glv_digits(S, s, c, K), glv_digits_plain(S, s, c, K)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), c
 
-    # K3-K5; K4 also on the two halves of one slot row block
-    a = [_elems(dev, rng) for _ in range(6)]
     f = [torch.as_tensor(rng.integers(0, 2, size=WIDTH, dtype=np.int32), device=dev) for _ in range(4)]
-    slot = _elems(dev, rng, width=2 * WIDTH)
-    pairs = {
-        "K4": (cuda_curve.proj_add(W, *a), cuda_curve.proj_add_plain(W, *a)),
-        "K4 strided": (cuda_curve.proj_add(W, slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:]),
-                       cuda_curve.proj_add_plain(W, slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:])),
-        "K5": (cuda_curve.proj_double_k(W, *a[:3], 5), cuda_curve.proj_double_k_plain(W, *a[:3], 5)),
-        "K3": (cuda_curve.aff_pair_add(W, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3]),
-               cuda_curve.aff_pair_add_plain(W, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3])),
-    }
-    # K4m, K6, K7; K4m on strided halves, its masked-off lanes and K7's
-    # infinity lanes bit for bit P1
     m, inf = f[0], f[1]
-    pairs.update({
-        "K4m strided": (cuda_curve.proj_add(W, slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:], mask=m),
-                        cuda_curve.proj_add_plain(W, slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:],
-                                                  mask=m)),
-        "K6": (cuda_curve.proj_double(W, *a[:3]), cuda_curve.proj_double_plain(W, *a[:3])),
-        "K7": (cuda_curve.proj_add_mixed(W, *a[:5], inf), cuda_curve.proj_add_mixed_plain(W, *a[:5], inf)),
-    })
-    for name, (got, want) in pairs.items():
-        for g, w in zip(got, want):
-            assert torch.equal(F.fully_reduce(g), F.fully_reduce(w)), name
-    for name, keep, p1 in (("K4m strided", m == 0, (slot[:, :WIDTH], *a[1:3])), ("K7", inf == 1, a[:3])):
-        for g, x in zip(pairs[name][0], p1):
-            assert torch.equal(g[:, keep], x[:, keep]), name
+    storages = [(W, None)] + [(Wc, Wc.codec) for Wc in (cv.ops_packed,) + (
+        (cv.ops51,) if params is PALLAS else ())]
+    for Wc, codec in storages:
+        enc = (lambda a: a) if codec is None else Wc.from_native
+        a = [enc(_vals(F, dev, rng, WIDTH, edges[i % 2:])) for i in range(6)]
+        slot = enc(_vals(F, dev, rng, 2 * WIDTH, edges))
+        halves = (slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:])
+        pairs = {
+            "K3": (cuda_curve.aff_pair_add(Wc, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3]),
+                   cuda_curve.aff_pair_add_plain(Wc, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3])),
+            "K4": (cuda_curve.proj_add(Wc, *a), cuda_curve.proj_add_plain(Wc, *a)),
+            "K4 strided": (cuda_curve.proj_add(Wc, *halves), cuda_curve.proj_add_plain(Wc, *halves)),
+            "K4m strided": (cuda_curve.proj_add(Wc, *halves, mask=m),
+                            cuda_curve.proj_add_plain(Wc, *halves, mask=m)),
+            "K5": (cuda_curve.proj_double_k(Wc, *a[:3], 5), cuda_curve.proj_double_k_plain(Wc, *a[:3], 5)),
+            "K6": (cuda_curve.proj_double(Wc, *a[:3]), cuda_curve.proj_double_plain(Wc, *a[:3])),
+            "K7": (cuda_curve.proj_add_mixed(Wc, *a[:5], inf),
+                   cuda_curve.proj_add_mixed_plain(Wc, *a[:5], inf)),
+        }
+        for name, (got, want) in pairs.items():
+            for g, w in zip(got, want):
+                ok = (torch.equal(F.fully_reduce(g), F.fully_reduce(w)) if codec is None
+                      else _rows_equal(F, codec, g, w))
+                assert ok, (params.label, type(codec).__name__, name)
+        for name, keep, p1 in (("K4m strided", m == 0, halves[:3]), ("K7", inf == 1, a[:3])):
+            for g, x1 in zip(pairs[name][0], p1):
+                assert torch.equal(g[:, keep], x1[:, keep]), (params.label, name)
+        if codec is not None:  # K13: beta * x of the codec mode, counted under its codec's key
+            key = cuda_codec.K13_FMA51 if isinstance(codec, Fma51Codec) else cuda_codec.K13
+            before = COUNTS[key]
+            assert _rows_equal(F, codec, cuda_codec.montmul_rows(F, codec, a[0], a[1]),
+                               cuda_codec.montmul_rows_plain(F, codec, a[0], a[1])), codec
+            assert COUNTS[key] == before + 1, codec
+
+    N = 1 << 10
+    pts, logs = points_with_logs(params, N, seed=14)
+    scalars = cv.random_scalars(N, seed=14, device=dev)
+    points = cv.points_from_ints(pts, dev)
+    want = expected_msm(params, cv.scalar.unpack(scalars), logs)
+    z = _vals(F, dev, rng, N, (1,))  # random Z: msm_projective on the same points
+    proj = ProjectivePoints(F.montmul(points.x, z), F.montmul(points.y, z), z)
+    k14 = tuple(cuda_curve.K14[k] for k in (cuda_curve.K3, cuda_curve.K4, cuda_curve.K5))
+    runs = {
+        "projective": (lambda: cv.msm(scalars, points),
+                       ("k1_montmul", "k2_glv_digits", "k3_aff_pair_add", "k4_proj_add", "k5_proj_double_k")),
+        "affine": (lambda: cv.msm(scalars, points, mode="affine"),
+                   ("k1_montmul", "k2_glv_digits", "k8_exp_const", "k7_proj_add_mixed", "k4_proj_add")),
+        "unsafe": (lambda: cv.msm_unsafe(scalars, points, mode="affine"), ("k7_proj_add_mixed",)),
+        "halving": (lambda: cv.msm(scalars, points, mode="halving"),
+                    ("k2_glv_digits", "k4m_proj_add_masked", "k4_proj_add", "k5_proj_double_k")),
+        "msm_projective": (lambda: cv.msm_projective(scalars, proj),
+                           ("k9_simple_digits", "k4_proj_add", "k5_proj_double_k")),
+        "packed": (lambda: cv.msm(scalars, points, mode="packed"), ("k13_montmul_rows",) + k14),
+        "unsafe packed": (lambda: cv.msm_unsafe(scalars, points, mode="packed"), k14),
+    }
+    if params is PALLAS:
+        runs["fma51"] = (lambda: cv.msm(scalars, points, mode="fma51"), ("k13_montmul_rows_fma51",)
+                         + tuple(cuda_curve.K14_FMA51[k] for k in (cuda_curve.K3, cuda_curve.K4,
+                                                                     cuda_curve.K5)))
+    for name, (run, keys) in runs.items():
+        before = dict(COUNTS)
+        assert cv.result_to_int(run()) == want, (params.label, name)
+        for key in keys:
+            assert COUNTS[key] > before.get(key, 0), (params.label, name, key)
+        if name in ("packed", "fma51"):  # the endomorphism ran on K13, not K1
+            assert COUNTS["k1_montmul"] == before.get("k1_montmul", 0), (params.label, name)
+    rp = cv.random_points_fast(N, seed=3, device=dev)
+    assert bool(W.affine_is_on_curve(rp).all()), params.label
+    return pts, scalars, logs
+
+
+def test_kernels_match_plain_twins(dev):
+    """Each kernel against its twin and a 2^10 MSM of each curve and each
+    mode on the card that launches every kernel of its path and equals its
+    known-discrete-log result, and random_points_fast on every curve (one
+    test item: the CPU suite's wall time follows its item count)."""
+    rng = np.random.default_rng(1)
+    for params in (BLS12_381, PALLAS):
+        _weierstrass_checks(dev, rng, params)
+    pts, scalars, logs = _weierstrass_checks(dev, rng, BLS12_377)
+    curve = Weierstrass.create(BLS12_377)
+    scs = curve.scalar.unpack(scalars[:, :64])
+    assert compute_msm(pts[:64], scs, mode="packed", device=dev) == expected_msm(BLS12_377, scs, logs[:64])
 
     # the halving layout's scatter-min/max and cumulative min/max on int32
     counts = torch.as_tensor(rng.integers(0, 9, size=(3, 64), dtype=np.int32))
@@ -131,78 +208,17 @@ def test_kernels_match_plain_twins(dev, curve):
         want = halving_layout(counts, width, cur)
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), width
 
-    N = 1 << 10
-    pts, logs = points_with_logs(BLS12_377, N, seed=12)
-    scalars = curve.random_scalars(N, seed=12, device=dev)
-    points = curve.points_from_ints(pts, dev)
-    want = expected_msm(BLS12_377, curve.scalar.unpack(scalars), logs)
-    z = _elems(dev, rng, width=N)  # random Z: msm_projective on the same points
-    proj = ProjectivePoints(F.montmul(points.x, z), F.montmul(points.y, z), z)
-    runs = {
-        "projective": (lambda: curve.msm(scalars, points),
-                       ("k1_montmul", "k2_glv_digits", "k3_aff_pair_add", "k4_proj_add", "k5_proj_double_k")),
-        "affine": (lambda: curve.msm(scalars, points, mode="affine"),
-                   ("k1_montmul", "k2_glv_digits", "k8_exp_const", "k7_proj_add_mixed", "k4_proj_add")),
-        "unsafe": (lambda: curve.msm_unsafe(scalars, points, mode="affine"), ("k7_proj_add_mixed",)),
-        "halving": (lambda: curve.msm(scalars, points, mode="halving"),
-                    ("k2_glv_digits", "k4m_proj_add_masked", "k4_proj_add", "k5_proj_double_k")),
-        "msm_projective": (lambda: curve.msm_projective(scalars, proj),
-                           ("k9_simple_digits", "k4_proj_add", "k5_proj_double_k")),
-    }
-    k14 = tuple(cuda_curve.K14[k] for k in (cuda_curve.K3, cuda_curve.K4, cuda_curve.K5))
-    runs.update({
-        "packed": (lambda: curve.msm(scalars, points, mode="packed"), ("k13_montmul_rows",) + k14),
-        "unsafe packed": (lambda: curve.msm_unsafe(scalars, points, mode="packed"), k14),
-    })
-    for name, (run, keys) in runs.items():
-        before = dict(COUNTS)
-        assert curve.result_to_int(run()) == want, name
-        for key in keys:
-            assert COUNTS[key] > before.get(key, 0), (name, key)
-        if "packed" in name:  # the endomorphism ran on K13, not K1
-            assert COUNTS["k1_montmul"] == before.get("k1_montmul", 0), name
-    assert compute_msm(pts[:64], curve.scalar.unpack(scalars[:, :64]), mode="packed", device=dev) == \
-        expected_msm(BLS12_377, curve.scalar.unpack(scalars[:, :64]), logs[:64])
-
-    # K13 on both codecs and both field shapes; K14 (K3-K7 on PackedCodec
-    # rows), K4m on strided halves, pass-through lanes bit for bit
-    Wp = curve.ops_packed
-    F22 = TwistedEdwards.create(ED_ON_BLS12_377).ops.F
-    for G, codec, rows in ((F, Wp.codec, 32), (F22, Fma51Codec(F22.p), 22), (F22, PackedCodec(F22.p), 22)):
-        x, y = (codec.from_digits(G, _elems(dev, rng, rows=rows)) for _ in range(2))
-        key = cuda_codec.K13_FMA51 if isinstance(codec, Fma51Codec) else cuda_codec.K13
-        before = COUNTS[key]
-        assert _rows_equal(G, codec, cuda_codec.montmul_rows(G, codec, x, y),
-                           cuda_codec.montmul_rows_plain(G, codec, x, y)), codec
-        assert COUNTS[key] == before + 1, codec  # each codec counted under its own key
-    a = [Wp.from_native(_elems(dev, rng)) for _ in range(6)]
-    slot = Wp.from_native(_elems(dev, rng, width=2 * WIDTH))
-    m, inf = f[0], f[1]
-    pairs = {
-        "K14-K3": (cuda_curve.aff_pair_add(Wp, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3]),
-                   cuda_curve.aff_pair_add_plain(Wp, a[0], a[1], f[0], f[1], a[2], a[3], f[2], f[3])),
-        "K14-K4": (cuda_curve.proj_add(Wp, *a), cuda_curve.proj_add_plain(Wp, *a)),
-        "K14-K4m strided": (
-            cuda_curve.proj_add(Wp, slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:], mask=m),
-            cuda_curve.proj_add_plain(Wp, slot[:, :WIDTH], *a[1:3], slot[:, WIDTH:], *a[4:], mask=m)),
-        "K14-K5": (cuda_curve.proj_double_k(Wp, *a[:3], 5), cuda_curve.proj_double_k_plain(Wp, *a[:3], 5)),
-        "K14-K6": (cuda_curve.proj_double(Wp, *a[:3]), cuda_curve.proj_double_plain(Wp, *a[:3])),
-        "K14-K7": (cuda_curve.proj_add_mixed(Wp, *a[:5], inf), cuda_curve.proj_add_mixed_plain(Wp, *a[:5], inf)),
-    }
-    for name, (got, want) in pairs.items():
-        for g, w in zip(got, want):
-            assert _rows_equal(F, Wp.codec, g, w), name
-    for name, keep, p1 in (("K14-K4m strided", m == 0, (slot[:, :WIDTH], *a[1:3])),
-                           ("K14-K7", inf == 1, a[:3])):
-        for g, x in zip(pairs[name][0], p1):
-            assert torch.equal(g[:, keep], x[:, keep]), name
-    rp = curve.random_points_fast(N, seed=3, device=dev)
-    assert bool(W.affine_is_on_curve(rp).all())
-
     # ed-on-bls12-377: K1 on the 22-limb field, K8, K9, K10-K12 (K11 with
-    # and without a mask, on strided halves of one slot block)
+    # and without a mask, on strided halves of one slot block), K13 on both
+    # codecs of its field
     ed = TwistedEdwards.create(ED_ON_BLS12_377)
     E, FE = ed.ops, ed.ops.F
+    N = 1 << 10
+    f = [torch.as_tensor(rng.integers(0, 2, size=WIDTH, dtype=np.int32), device=dev) for _ in range(4)]
+    for codec in (Fma51Codec(FE.p), PackedCodec(FE.p)):
+        x, y = (codec.from_digits(FE, _elems(dev, rng, rows=22)) for _ in range(2))
+        assert _rows_equal(FE, codec, cuda_codec.montmul_rows(FE, codec, x, y),
+                           cuda_codec.montmul_rows_plain(FE, codec, x, y)), codec
     x, y = _elems(dev, rng, rows=22), _elems(dev, rng, rows=22)
     assert torch.equal(cuda_mul.montmul(FE, x, y), FE.montmul_plain(x, y))
     for e in (0, 1, 5, FE.p - 2):
@@ -241,3 +257,20 @@ def test_kernels_match_plain_twins(dev, curve):
         assert COUNTS[key] > before.get(key, 0), key
     assert ed.result_to_int(ed.msm(scalars, points, mode="basic")) == want
     assert bool(E.is_on_curve(ed.random_points_fast(N, seed=3, device=dev)).all())
+
+    # ed-on-bls12-377 and Pallas both have n = 22: their launches take
+    # different shape IDs and give different products of the same limbs,
+    # each its own twin's; the entry refuses Pallas's constants under
+    # Fp22's ID
+    FP = Weierstrass.create(PALLAS).ops.F
+    assert FE.n == FP.n and _build.field_shape(FE) != _build.field_shape(FP)
+    x, y = _elems(dev, rng, rows=22), _elems(dev, rng, rows=22)
+    got_e, got_p = cuda_mul.montmul(FE, x, y), cuda_mul.montmul(FP, x, y)
+    assert torch.equal(got_e, FE.montmul_plain(x, y))
+    assert torch.equal(FP.fully_reduce(got_p), FP.fully_reduce(FP.montmul_plain(x, y)))
+    assert not torch.equal(got_e, got_p)
+    lib, _ = _build.library()
+    out = torch.empty_like(x)
+    code = lib.msm_montmul(_build.ptrs(x, y, out), _build.ints([WIDTH] * 3), WIDTH,
+                           _build.field_shape(FE), _build.field_words(FP), _build.stream_of(x))
+    assert code != 0

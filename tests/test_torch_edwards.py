@@ -1,8 +1,8 @@
 """The port's ed-on-bls12-377 slice against the JAX package, on the CPU.
 
-* Field core (K0, n = 22): a pure-Python model of the kernels' word-level
-  CIOS (32-bit rounds, then the 8-bit tail round for R = 2^264) against
-  ``montmul_plain`` on both field shapes, limb for limb; ``exp_const``,
+* Field core (K0): a pure-Python model of the kernels' words (the load,
+  32-bit CIOS rounds, the tail round for R = 2^264 and 2^396, and Pallas's
+  carry-aware load and add) against ``montmul_plain`` on every field shape; ``exp_const``,
   ``inverse`` and ``batch_inverse`` against JAX ``MontgomeryFp``, limb for
   limb (the same algorithms, hence the same representatives).
 * K9's twin (``signed_digits``) against ``simple_digits_pallas(...,
@@ -61,10 +61,11 @@ Q = ED_ON_BLS12_377.order
 B = 8
 
 
-def _ints(seed, bound, count, edges=()):
+def _ints(seed, bound, count, edges=(), nbytes=40):
     rng = np.random.default_rng(seed)
     vals = [v for v in edges if v < bound]
-    return vals + [int.from_bytes(rng.bytes(40), "little") % bound for _ in range(count - len(vals))]
+    return vals + [int.from_bytes(rng.bytes(nbytes), "little") % bound
+                   for _ in range(count - len(vals))]
 
 
 def _cios(a: int, b: int, p: int, nw: int, tail: int) -> int:
@@ -98,27 +99,76 @@ def _cios(a: int, b: int, p: int, nw: int, tail: int) -> int:
     return sum(t[j] << (32 * j) for j in range(nw))
 
 
+def _cond_sub_hi(low: int, hi: int, m: int, nw: int) -> int:
+    """csrc/field.cuh::cond_sub_hi: (hi 2^(32 nw) + low) - m if that is >= m,
+    else low, in nw words (cond_sub where hi is 0)."""
+    return low if low < m and not hi else (low - m) % (1 << (32 * nw))
+
+
+def _load(v: int, p: int, nw: int, carry: bool) -> int:
+    """load_fe of a stored value v < 4p: its words; in a CARRY shape the bit
+    above them folded in and the value reduced below 2p (the other shapes
+    drop bits above the words, none where 4p < 2^(32 nw))."""
+    low, hi = v % (1 << (32 * nw)), v >> (32 * nw)
+    return _cond_sub_hi(low, hi, 2 * p, nw) if carry else low
+
+
+def _f_add(a: int, b: int, p: int, nw: int, carry: bool) -> int:
+    """f_add on values < 2p: the word sum, then 2p off, with the carry out of
+    the top word in a CARRY shape."""
+    s = a + b
+    return _cond_sub_hi(s % (1 << (32 * nw)), s >> (32 * nw) if carry else 0, 2 * p, nw)
+
+
 def test_field_core_and_inverse_match_jax():
-    """The word-level CIOS with its 8-bit tail equals ``montmul_plain`` (so
-    R = 2^264 exactly; a kernel stopping at 2^256 or going on to 2^288 would
-    not), on inputs below 4p of both field shapes; the kernels' field shapes
-    refuse other fields; exp_const, inverse and batch_inverse equal the JAX
-    package's limb for limb."""
-    for p, nw, tail in ((BLS12_377.modulus, 12, 0), (P, 8, 8)):
+    """The kernels' words (csrc/field.cuh), modelled in Python, on every
+    field shape: the CIOS rounds and tail round after the load equal
+    ``montmul_plain`` limb for limb on inputs below 4p (so R = 2^(12 n)
+    exactly; stopping a round early or going one on would not). On Pallas's
+    CARRY shape (4p > 2^256) the load folds bit 256 of inputs in [2^256,
+    4p) and f_add keeps the carry of sums past 2^256: equal mod p, where
+    the carry-free load and add of Fp22 (the other n = 22 shape) are wrong
+    on exactly those inputs. Each field takes its own shape ID, and a field
+    no shape fits is refused; exp_const, inverse and batch_inverse equal the
+    JAX package's limb for limb."""
+    shapes = ((BLS12_377.modulus, 12, 0, False), (P, 8, 8, False),
+              (BLS12_381.modulus, 12, 12, False), (PALLAS.modulus, 8, 8, True))
+    for p, nw, tail, carry in shapes:
         F = make_field(p)
-        assert (F.n * 12, _build.FIELD_WORDS[F.n]) == (32 * nw + tail, nw)
-        vals = list(zip(_ints(1, 4 * p, 48, edges=(0, 1, 4 * p - 1)),
-                        _ints(2, 4 * p, 48, edges=(4 * p - 1, 4 * p - 1, 1))))
+        assert F.n * 12 == 32 * nw + tail
+        assert _build.FIELD_SHAPES[_build.field_shape(F)] == (F.n, nw, carry)
+        big = ((1 << 256) + 5,) if carry else ()  # past the 8 words, below 4p
+        vals = list(zip(_ints(1, 4 * p, 48, edges=(0, 1, 4 * p - 1) + big, nbytes=56),
+                        _ints(2, 4 * p, 48, edges=(4 * p - 1, 4 * p - 1, 1) + big, nbytes=56)))
         x, y = (torch.as_tensor(F.pack([v[i] for v in vals], montgomery=False)) for i in range(2))
         want = F.unpack(F.montmul_plain(x, y), montgomery=False, reduce=False)
-        assert [_cios(a, b, p, nw, tail) for a, b in vals] == want, nw
-        assert max(want) < 2 * p
-        if tail:  # a wrong R is caught: R' = 2^256 and 2^288 give other integers
+        got = [_cios(_load(a, p, nw, carry), _load(b, p, nw, carry), p, nw, tail) for a, b in vals]
+        assert max(got) < 2 * p, nw
+        if carry:  # the load reduces inputs of 2p and above: equal mod p, the
+            # same integer where both are below 2p; dropping bit 256 is wrong
+            assert [g % p for g in got] == [w % p for w in want]
+            assert all(g == w for g, w, (a, b) in zip(got, want, vals) if max(a, b) < 2 * p)
+            assert all(_load(a, p, nw, False) % p != a % p for a, _ in vals if a >> 256)
+        else:
+            assert got == want, nw
+        if tail:  # a wrong R is caught: one round less or more gives other integers
             assert [_cios(a, b, p, nw, 0) for a, b in vals] != want
             assert [_cios(a, b, p, nw + 1, 0) for a, b in vals] != want
-    for p in (BLS12_381.modulus, PALLAS.modulus):  # n = 33; n = 22 with 4p > 2^256
-        with pytest.raises(ValueError, match="ROADMAP queue 1, item 15"):
-            _build.field_words(make_field(p))
+        # f_add on values < 2p: on Pallas the sums of values past 2^255 cross 2^256
+        aa = _ints(3, 2 * p, 32, edges=(2 * p - 1, 2 * p - 2, (1 << 255) + 3), nbytes=56)
+        bb = _ints(4, 2 * p, 32, edges=(2 * p - 2, 2 * p - 1, 2 * p - 7), nbytes=56)
+        sums = [_f_add(a, b, p, nw, carry) for a, b in zip(aa, bb)]
+        assert all(t < 2 * p and t % p == (a + b) % p for t, a, b in zip(sums, aa, bb)), nw
+        crossing = [(a, b) for a, b in zip(aa, bb) if (a + b) >> (32 * nw)]
+        assert bool(crossing) == carry, nw
+        assert all(_f_add(a, b, p, nw, False) % p != (a + b) % p for a, b in crossing)
+    # BLS12-381 (n = 33) and Pallas (n = 22 as this field, but 4p > 2^256)
+    # take shapes of their own; a field of n = 22 whose 2p exceeds 8 words
+    # has none
+    ids = [_build.field_shape(make_field(p)) for p in (P, BLS12_381.modulus, PALLAS.modulus)]
+    assert ids == [2, 3, 4]
+    with pytest.raises(ValueError, match="2p < 2\\^256 <= 4p"):
+        _build.field_words(make_field((1 << 255) + 95))
 
     F, J = make_field(P), jax_field(P)
     x = F.pack(_ints(3, P, 64, edges=(1, P - 1)))

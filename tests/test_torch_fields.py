@@ -97,8 +97,9 @@ def test_montmul_twin_kernel_body_fields_and_dispatch(fields):
     ``montmul_pallas`` runs) evaluated eagerly (interpret mode computes the
     same function but takes ~40 s to compile at n = 32); the plain field
     ops at limb counts that are not a multiple of the carry group (n = 3,
-    6, 22); CPU tensors take the twin and launch nothing; the kernels
-    refuse other fields (they compute with R = 2^384) and other devices."""
+    6, 22, 33); CPU tensors take the twin and launch nothing; the kernels take
+    BLS12-381's field in a shape of its own and refuse fields no shape
+    fits, and other devices."""
     F, J = fields
     x = F.pack(_ints(20, 4 * P, edges=(0, 4 * P - 1)), montgomery=False)
     y = F.pack(_ints(21, 4 * P, edges=(4 * P - 1, 1)), montgomery=False)
@@ -111,8 +112,8 @@ def test_montmul_twin_kernel_body_fields_and_dispatch(fields):
     got = F.montmul_plain(torch.as_tensor(x), torch.as_tensor(y))
     assert np.array_equal(got.numpy(), np.asarray(jnp.stack(rows)))
 
-    for name in ("babybear", "goldilocks", "pasta-fp"):
-        p = EXAMPLE_FIELDS[name]
+    fields = [(name, EXAMPLE_FIELDS[name]) for name in ("babybear", "goldilocks", "pasta-fp")]
+    for name, p in fields + [("bls12-381", BLS12_381.modulus)]:
         Fo, Jo = make_field(p), jax_field(p)
         for G, H in ((Fo, Jo), (F, J)):  # the same limb layout and constants
             assert (G.n, G.mask, G.R, G.R2, G.mont_one) == (H.n, H.mask, H.R, H.R2, H.mont_one), name
@@ -135,8 +136,11 @@ def test_montmul_twin_kernel_body_fields_and_dispatch(fields):
     assert torch.equal(F.montmul(xs, xs[:, :1]), F.montmul_plain(xs, xs[:, :1]))
     assert COUNTS["k1_montmul"] == before  # no kernel launch on CPU tensors
 
+    # BLS12-381's field has a shape of its own (n = 33, R = 2^396); a field
+    # of n = 33 whose 4p exceeds 12 words has none
+    assert _build.field_shape(make_field(BLS12_381.modulus)) == 3
     with pytest.raises(ValueError, match="2\\^384"):
-        _build.field_words(make_field(BLS12_381.modulus))
+        _build.field_words(make_field((1 << 382) + 3))
     z = torch.zeros((32, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="device"):
         cuda_mul.montmul(F, z, torch.zeros((32, 4), dtype=torch.int32, device="meta"))

@@ -103,8 +103,8 @@ def test_port_boundaries(curves):
     """The port's curve constants are the JAX package's; the carry-over
     from JAX arrays checks its input; the codec storage mode "packed" runs
     and "fma51" on BLS12-377 raises as the JAX package's does (the 51x5
-    layout's 255-bit ceiling on p), naming the ROADMAP item of the curve it
-    waits for; unknown modes raise; importing the port leaves JAX and the
+    layout's 255-bit ceiling on p), naming the one supported curve below it
+    (Pallas); unknown modes raise; importing the port leaves JAX and the
     JAX package out, and chip_smoke.py imports neither."""
     assert dataclasses.asdict(port_params.BLS12_377) == dataclasses.asdict(BLS12_377)
     port = curves[0]
@@ -119,7 +119,7 @@ def test_port_boundaries(curves):
     _, logs, scs, points, scalars = _inputs(curves, 8, seed=1)
     assert port.result_to_int(port.msm(scalars, points, mode="packed")) == expected_msm(
         BLS12_377, scs, logs)
-    with pytest.raises(ValueError, match="255-bit.*ROADMAP queue 1, item 15"):
+    with pytest.raises(ValueError, match="255-bit ceiling.*only Pallas"):
         port.msm(scalars, points, mode="fma51")
     with pytest.raises(ValueError, match="mode"):
         port.msm(scalars, points, mode="basic")
