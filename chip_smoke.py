@@ -11,13 +11,22 @@ Phases (each prints one line; any failure raises, so the exit code is
 non-zero and no result line is printed):
 
 1. device: the card's name and power limit, and the kernel build
-   (one ``nvcc`` per source into ``build/``, with the ptxas register and
-   spill lines);
+   (one ``nvcc`` per source into ``build/``, with the ptxas register,
+   stack and spill lines, and each curve kernel's SASS instructions and
+   local loads/stores from ``cuobjdump -sass``);
 2. every kernel of every path against its plain PyTorch twin on the card,
    at the shapes the 2^16 MSMs give it (K2 and K9 bit-exact, the others
    exact mod p, the pass-through lanes of K4m and K7 bit for bit), with the
-   CUDA-event time per call of both and the bound: the least time the card
-   could take for the same work;
+   card's own time per call (CUDA-graph replay, so no host enqueue time),
+   the twin's CUDA-event time, and the bound: the least time the card could
+   take for the same work. K4, K4m and K5 run every built instance (G
+   threads a point, as the kernels' library lists them), each against the
+   twin and timed twice in turns, K4 over the main path's widths on limbs
+   (450,560 down to 1 at 2^16); the row's time is the instance the kernels'
+   width table picks. The timed calls replay one input set, which stays in
+   the 50 MB L2 below ~45k lanes; per-MSM sums come from ``profile_msm``.
+   K5's line also gives its latency floor: its dependent product levels
+   times one product's latency (K8's time over its products);
 3. BLS12-377: the MSM at N = 8 and its edge cases against two host oracles
    (double-and-add per point, and the known discrete logs);
 4. BLS12-377: the 2^16 MSM against its known-discrete-log result, with the
@@ -62,6 +71,7 @@ from __future__ import annotations
 
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -76,13 +86,6 @@ SAMPLE = 256  # lanes of random_points_fast checked on the host
 SMALL = 4096  # width of the K14 variants that no codec-mode path runs
 REPS, PLAIN_REPS = 20, 3  # back-to-back calls per timing: kernel, plain twin
 
-# The bound's two rates (NVIDIA H100 SXM): device memory 3.35 TB/s (data
-# sheet); 32-bit integer multiply-adds, 64 results per clock per SM on
-# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
-# throughput), times the SM count and the card's maximum SM clock, both read
-# in the run.
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_CLOCK_PER_SM = 64
 
 
 def _smi(query: str) -> str:
@@ -97,7 +100,8 @@ def _smi(query: str) -> str:
 def _cuda_ms(torch, fn, reps=REPS) -> float:
     """CUDA-event time of one fn() call in ms: one event pair around reps
     back-to-back calls, after one untimed call. Where the host takes longer
-    to enqueue a call than the card to run it, this is the host's time."""
+    to enqueue a call than the card to run it, this is the host's time (the
+    plain twins' timing)."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -108,18 +112,53 @@ def _cuda_ms(torch, fn, reps=REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def mont_imads(nw: int, tail: bool) -> int:
-    """32-bit multiply-adds of one CIOS product over nw words: nw^2 products
-    a_j b_i and nw^2 products m p_j, each 32x32->64 counted as two (low and
-    high half), nw quotient digits m; the tail round one more row of m p_j
-    and its digit. Additions, carries and selects are not counted, so a
-    bound built on this is a lower bound."""
-    return 4 * nw * nw + nw + (2 * nw + 1 if tail else 0)
+def _graph_ms(torch, fn, reps=REPS) -> float:
+    """The card's own time of one fn() call in ms: a CUDA graph of reps
+    back-to-back calls, replayed once untimed and once between two CUDA
+    events, so that no host enqueue time is in it (the kernels' timing)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def _sass_sizes(bindir: Path, lib: Path) -> dict:
+    """SASS instructions and local-memory loads and stores (LDL, STL) of each
+    curve kernel of the built library, by demangled name (``cuobjdump
+    -sass`` and ``cu++filt`` of the toolkit in ``bindir``)."""
+    out = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    sizes, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            sizes[name] = [0, 0]
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            sizes[name][0] += 1
+            sizes[name][1] += bool(re.search(r"\b(LDL|STL)", line))
+    names = [k for k in sizes if "wei" in k]
+    plain = subprocess.run([str(bindir / "cu++filt")], input="\n".join(names), capture_output=True,
+                           text=True, check=True, timeout=60).stdout.splitlines()
+    return {p.replace("msm::", "").replace("wei::", ""): sizes[k] for k, p in zip(names, plain)}
 
 
 def main() -> None:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
     root = Path(__file__).resolve().parent
@@ -137,6 +176,7 @@ def main() -> None:
     from msm_zprize_tpu_torch.msm.engine import slot_count
     from msm_zprize_tpu_torch.parallel.api import TwistedEdwards, Weierstrass
     from msm_zprize_tpu_torch.submission import compute_msm
+    from msm_zprize_tpu_torch.testing.bounds import HBM_BYTES_PER_S, bound_ms, imad_per_s, mont_imads
     from msm_zprize_tpu_torch.testing.points import (
         ed_expected_msm, ed_naive_msm, ed_points_with_logs, expected_msm, naive_msm,
         points_with_logs,
@@ -147,8 +187,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = _smi("name,power.limit")
-    imad_per_s = (IMAD_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
-                  * float(_smi("clocks.max.sm").split()[0]) * 1e6)  # "1980 MHz"
+    imad_rate = imad_per_s(torch)
 
     # ---- 1. device and build --------------------------------------------------
     print(card)  # name, power limit: as nvidia-smi reports them
@@ -156,10 +195,12 @@ def main() -> None:
     _, info = _build.library()
     print(f"[1 device] {kind} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"kernel build {info.seconds:.1f} s (nvcc), load {time.perf_counter() - t0:.1f} s | "
-          f"bound rates: {HBM_BYTES_PER_S / 1e12:.2f} TB/s, {imad_per_s / 1e12:.2f} T IMAD/s")
+          f"bound rates: {HBM_BYTES_PER_S / 1e12:.2f} TB/s, {imad_rate / 1e12:.2f} T IMAD/s")
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"    ptxas: {line.strip()}")
+    for name, (count, local) in _sass_sizes(Path(_build._nvcc()).resolve().parent, info.path).items():
+        print(f"    sass: {count} instructions, {local} local loads/stores: {name}")
 
     rng = np.random.default_rng(SEED)
 
@@ -205,13 +246,12 @@ def main() -> None:
                    nbytes, imads):
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain twin at {shape}: max err {err}")
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, imads / imad_per_s * 1e3
-        bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        bound, bound_by = bound_ms(nbytes, imads, imad_rate)
         print(f"[2 kernel] {kid} {name} {shape}: equal to plain twin (max err {err}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({bound_by})")
         table.append(dict(key=key, name=name, id=kid, route="cuda", source=src + source,
                           replaces=replaces, run=run, counter=counter, max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                           library_ms=None, shape=shape))
 
     src = "msm_zprize_tpu_torch/csrc/"
@@ -240,16 +280,42 @@ def main() -> None:
         kernel_row(f"k1_{tag}", f"montmul_{tag}", "K1", "montmul.cu",
                    "msm_zprize_tpu/fields/pallas_mul.py:167", runs["proj"], cuda_mul.KERNEL,
                    mod_p_err(G, [cuda_mul.montmul(G, x, y)], [G.montmul_plain(x, y)]),
-                   _cuda_ms(torch, lambda: cuda_mul.montmul(G, x, y)),
+                   _graph_ms(torch, lambda: cuda_mul.montmul(G, x, y)),
                    _cuda_ms(torch, lambda: G.montmul_plain(x, y), PLAIN_REPS), f"({n}, {N})",
                    3 * n * 4 * N, mm * N)
         e = G.p - 2  # batch_inverse's one Fermat inverse, on one lane
+        k8_ms = _graph_ms(torch, lambda: cuda_mul.exp_const(G, x[:, :1], e))
+        k8_products = e.bit_length() + bin(e).count("1")
+        product_ms = k8_ms / k8_products  # one dependent product's latency on one lane
         kernel_row(f"k8_{tag}", f"exp_const_{tag}", "K8", "montmul.cu",
                    "msm_zprize_tpu/fields/pallas_mul.py:237", runs["affine"], cuda_mul.K8,
                    mod_p_err(G, [cuda_mul.exp_const(G, x[:, :1], e)], [G.exp_const_plain(x[:, :1], e)]),
-                   _cuda_ms(torch, lambda: cuda_mul.exp_const(G, x[:, :1], e)),
-                   _cuda_ms(torch, lambda: G.exp_const_plain(x[:, :1], e), PLAIN_REPS),
-                   f"({n}, 1), e = p - 2", 2 * n * 4, (e.bit_length() + bin(e).count("1")) * mm)
+                   k8_ms, _cuda_ms(torch, lambda: G.exp_const_plain(x[:, :1], e), PLAIN_REPS),
+                   f"({n}, 1), e = p - 2", 2 * n * 4, k8_products * mm)
+        print(f"    one dependent product's latency on {tag} (K8 on one lane over its "
+              f"{k8_products} products): {product_ms * 1e3:.3f} us")
+
+        def instances(kernel, shape, args, err_of, inst, plain, chain=0):
+            """Every built instance of ``kernel`` (G threads a point) against
+            the twin on ``args``, each timed twice in turns (G ascending, then
+            descending); prints them and, for a chain of ``chain`` dependent
+            product levels, its latency floor; returns (the worst error, the
+            width table's pick's time, the twin's time) for its row."""
+            want = plain(args)
+            gs = cuda_curve._groups(G, kernel)
+            worst = max(err_of(inst(g, args), want) for g in gs)
+            del want
+            times = {g: [] for g in gs}
+            for g in gs + gs[::-1]:
+                times[g].append(_graph_ms(torch, lambda: inst(g, args)))
+            ms = {g: sum(t) / len(t) for g, t in times.items()}
+            pick = cuda_curve._group_for(G, kernel, args[0].shape[-1])
+            floor = (f"; latency floor {chain} product levels x {product_ms * 1e3:.3f} us = "
+                     f"{chain * product_ms:.4f} ms" if chain else "")
+            print(f"[2 instances] {kernel} {tag} {shape}: width table's G = {pick}; "
+                  + ", ".join(f"G={g} {ms[g]:.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
+                              for g, t in times.items()) + floor)
+            return worst, ms[pick], _cuda_ms(torch, lambda: plain(args), PLAIN_REPS)
         scal = cv.random_scalars(N, seed=SEED, device=dev)
         gm, gs = cuda_scalar.glv_digits(Sg, scal, cg, Kg)
         wm, ws = cuda_scalar.glv_digits_plain(Sg, scal, cg, Kg)
@@ -260,7 +326,7 @@ def main() -> None:
         kernel_row(f"k2_{tag}", f"glv_digits_{tag}", "K2", "glv_digits.cu",
                    "msm_zprize_tpu/fields/pallas_scalar.py:279", runs["proj"], cuda_scalar.KERNEL,
                    max((gm - wm).abs().max().item(), (gs - ws).abs().max().item()),
-                   _cuda_ms(torch, lambda: cuda_scalar.glv_digits(Sg, scal, cg, Kg)),
+                   _graph_ms(torch, lambda: cuda_scalar.glv_digits(Sg, scal, cg, Kg)),
                    _cuda_ms(torch, lambda: cuda_scalar.glv_digits_plain(Sg, scal, cg, Kg), PLAIN_REPS),
                    f"N={N}, c={cg}, K={Kg}", (Sg.n + 4 * Kg) * 4 * N, muls * N)
         del x, y, scal, gm, gs, wm, ws
@@ -289,7 +355,7 @@ def main() -> None:
                            cuda_codec.K13_FMA51 if fma else cuda_codec.K13,
                            rows_err(G, codec, [cuda_codec.montmul_rows(G, codec, x, y)],
                                     [cuda_codec.montmul_rows_plain(G, codec, x, y)]),
-                           _cuda_ms(torch, lambda: cuda_codec.montmul_rows(G, codec, x, y)),
+                           _graph_ms(torch, lambda: cuda_codec.montmul_rows(G, codec, x, y)),
                            _cuda_ms(torch, lambda: cuda_codec.montmul_rows_plain(G, codec, x, y),
                                     PLAIN_REPS),
                            f"({nr}, {N}), n = {n}", 3 * nr * 4 * N, mm * N)
@@ -303,39 +369,48 @@ def main() -> None:
             a3 = [elem(w1), elem(w1), flags(w1), flags(w1), elem(w1), elem(w1), flags(w1), flags(w1)]
             row("K3", "aff_pair_add", 372, run,
                 err(cuda_curve.aff_pair_add(Wc, *a3), cuda_curve.aff_pair_add_plain(Wc, *a3)),
-                _cuda_ms(torch, lambda: cuda_curve.aff_pair_add(Wc, *a3)),
+                _graph_ms(torch, lambda: cuda_curve.aff_pair_add(Wc, *a3)),
                 _cuda_ms(torch, lambda: cuda_curve.aff_pair_add_plain(Wc, *a3), PLAIN_REPS),
                 f"W={w1}, {nr} rows", (7 * nr + 4) * 4 * w1, 9 * mm * w1)
             del a3
-            for width in (w1 // 2, 1):
+            # K4, K4m and K5: every instance (G threads a point) against the
+            # twin and timed in turns; the row's time is the width table's pick
+            # limbs: the main round's tree levels, the compact residual's
+            # 8 x 2048 lanes, the fold and reduction widths Kg Lg 2^(1-i)
+            # (45,056 down to 176 at 2^16) and Horner's 1
+            k4_widths = ((w1 // 2, w1 // 4, w1 // 8, 2 * Kg * Lg, Kg * Lg, 8 * 2048)
+                         + tuple(Kg * Lg >> i for i in range(1, 6)) + (Kg * Lg >> 7, 1)
+                         if codec is None else (w1 // 2, 1))
+            for width in k4_widths:
                 a4 = [elem(width) for _ in range(6)]
-                row("K4", "proj_add", 382, run,
-                    err(cuda_curve.proj_add(Wc, *a4), cuda_curve.proj_add_plain(Wc, *a4)),
-                    _cuda_ms(torch, lambda: cuda_curve.proj_add(Wc, *a4)),
-                    _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(Wc, *a4), PLAIN_REPS),
+                row("K4", "proj_add", 382, run, *instances(
+                    cuda_curve.K4, f"W={width}, {nr} rows", a4, err,
+                    lambda G, a: cuda_curve._proj_add(Wc, G, *a),
+                    lambda a: cuda_curve.proj_add_plain(Wc, *a)),
                     f"W={width}, {nr} rows", 9 * nr * 4 * width, 12 * mm * width)
             for width, k in ((Kg, c0g), (1, cg)):
                 a5 = [elem(width) for _ in range(3)]
-                row("K5", "proj_double_k", 324, run,
-                    err(cuda_curve.proj_double_k(Wc, *a5, k), cuda_curve.proj_double_k_plain(Wc, *a5, k)),
-                    _cuda_ms(torch, lambda: cuda_curve.proj_double_k(Wc, *a5, k)),
-                    _cuda_ms(torch, lambda: cuda_curve.proj_double_k_plain(Wc, *a5, k), PLAIN_REPS),
+                row("K5", "proj_double_k", 324, run, *instances(
+                    cuda_curve.K5, f"W={width}, k={k}, {nr} rows", a5, err,
+                    lambda G, a, k=k: cuda_curve._proj_double_k(Wc, G, *a, k),
+                    lambda a, k=k: cuda_curve.proj_double_k_plain(Wc, *a, k), chain=2 * k),
                     f"W={width}, k={k}, {nr} rows", 6 * nr * 4 * width, 8 * k * mm * width)
             wm4 = wh if codec is None else SMALL
             a4 = [elem(wm4) for _ in range(6)]
             m4 = flags(wm4)
-            got, want = cuda_curve.proj_add(Wc, *a4, mask=m4), cuda_curve.proj_add_plain(Wc, *a4, mask=m4)
             off = m4 == 0  # masked-off lanes are P1, bit for bit
-            row("K4m", "proj_add_masked", 382, side["halving"],
-                max(err(got, want), raw_err([g[:, off] for g in got], [a[:, off] for a in a4[:3]])),
-                _cuda_ms(torch, lambda: cuda_curve.proj_add(Wc, *a4, mask=m4)),
-                _cuda_ms(torch, lambda: cuda_curve.proj_add_plain(Wc, *a4, mask=m4), PLAIN_REPS),
+            row("K4m", "proj_add_masked", 382, side["halving"], *instances(
+                cuda_curve.K4M, f"W={wm4}, masked, {nr} rows", a4,
+                lambda got, want: max(err(got, want),
+                                      raw_err([g[:, off] for g in got], [a[:, off] for a in a4[:3]])),
+                lambda G, a: cuda_curve._proj_add(Wc, G, *a, mask=m4),
+                lambda a: cuda_curve.proj_add_plain(Wc, *a, mask=m4)),
                 f"W={wm4}, masked, {nr} rows", (9 * nr + 1) * 4 * wm4, 12 * mm * int(m4.sum().item()))
-            del a4, got, want
+            del a4, a5
             a6 = [elem(SAMPLE) for _ in range(3)]  # the subgroup check's width
             row("K6", "proj_double", 394, side["subgroup"],
                 err(cuda_curve.proj_double(Wc, *a6), cuda_curve.proj_double_plain(Wc, *a6)),
-                _cuda_ms(torch, lambda: cuda_curve.proj_double(Wc, *a6)),
+                _graph_ms(torch, lambda: cuda_curve.proj_double(Wc, *a6)),
                 _cuda_ms(torch, lambda: cuda_curve.proj_double_plain(Wc, *a6), PLAIN_REPS),
                 f"W={SAMPLE}, {nr} rows", 6 * nr * 4 * SAMPLE, 8 * mm * SAMPLE)
             # the affine reduction's width and random_points_fast's
@@ -347,7 +422,7 @@ def main() -> None:
                 on = i7 == 1  # lanes with an infinite affine operand are P1
                 row("K7", "proj_add_mixed", 397, side["affine"],
                     max(err(got, want), raw_err([g[:, on] for g in got], [a[:, on] for a in a7[:3]])),
-                    _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed(Wc, *a7, i7)),
+                    _graph_ms(torch, lambda: cuda_curve.proj_add_mixed(Wc, *a7, i7)),
                     _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed_plain(Wc, *a7, i7), PLAIN_REPS),
                     f"W={width}, {nr} rows", (8 * nr + 1) * 4 * width, 11 * mm * int((~on).sum().item()))
             del a7, got, want
@@ -375,7 +450,7 @@ def main() -> None:
     kernel_row("k1_ed", "montmul_n22", "K1", "montmul.cu",
                "msm_zprize_tpu/fields/pallas_mul.py:167", ed_run, cuda_mul.KERNEL,
                mod_p_err(FE, [cuda_mul.montmul(FE, x, y)], [FE.montmul_plain(x, y)]),
-               _cuda_ms(torch, lambda: cuda_mul.montmul(FE, x, y)),
+               _graph_ms(torch, lambda: cuda_mul.montmul(FE, x, y)),
                _cuda_ms(torch, lambda: FE.montmul_plain(x, y), PLAIN_REPS), f"({n22}, {N})",
                3 * n22 * 4 * N, mm8 * N)
 
@@ -384,7 +459,7 @@ def main() -> None:
     kernel_row("k8", "exp_const", "K8", "montmul.cu",
                "msm_zprize_tpu/fields/pallas_mul.py:237", ed_run, cuda_mul.K8,
                mod_p_err(FE, [cuda_mul.exp_const(FE, x1, e)], [FE.exp_const_plain(x1, e)]),
-               _cuda_ms(torch, lambda: cuda_mul.exp_const(FE, x1, e)),
+               _graph_ms(torch, lambda: cuda_mul.exp_const(FE, x1, e)),
                _cuda_ms(torch, lambda: FE.exp_const_plain(x1, e), PLAIN_REPS),
                f"({n22}, 1), e = p - 2", 2 * n22 * 4,
                (e.bit_length() + bin(e).count("1")) * mm8)
@@ -397,7 +472,7 @@ def main() -> None:
     kernel_row("k9", "simple_digits", "K9", "glv_digits.cu",
                "msm_zprize_tpu/fields/pallas_scalar.py:239", ed_run, cuda_scalar.K9,
                max((gm - wm).abs().max().item(), (gs - ws).abs().max().item()),
-               _cuda_ms(torch, lambda: cuda_scalar.simple_digits(scal, ce, Ke)),
+               _graph_ms(torch, lambda: cuda_scalar.simple_digits(scal, ce, Ke)),
                _cuda_ms(torch, lambda: signed_digits(scal, ce, Ke, 12), PLAIN_REPS),
                f"N={N}, c={ce}, K={Ke}", (SE.n + 2 * Ke) * 4 * N, 0)
 
@@ -406,7 +481,7 @@ def main() -> None:
     kernel_row("k10", "ed_pair_add", "K10", "edwards.cu",
                "msm_zprize_tpu/curves/pallas_curve.py:449", ed_run, cuda_edwards.K10,
                mod_p_err(FE, cuda_edwards.ed_pair_add(E, *a10), cuda_edwards.ed_pair_add_plain(E, *a10)),
-               _cuda_ms(torch, lambda: cuda_edwards.ed_pair_add(E, *a10)),
+               _graph_ms(torch, lambda: cuda_edwards.ed_pair_add(E, *a10)),
                _cuda_ms(torch, lambda: cuda_edwards.ed_pair_add_plain(E, *a10), PLAIN_REPS),
                f"W={lanes1e}", (8 * n22 + 4) * 4 * lanes1e, 10 * mm8 * lanes1e)
     del a10
@@ -418,7 +493,7 @@ def main() -> None:
                    "msm_zprize_tpu/curves/pallas_curve.py:500", ed_run, cuda_edwards.K11,
                    mod_p_err(FE, cuda_edwards.ed_add(E, *a11, **mask),
                              cuda_edwards.ed_add_plain(E, *a11, **mask)),
-                   _cuda_ms(torch, lambda: cuda_edwards.ed_add(E, *a11, **mask)),
+                   _graph_ms(torch, lambda: cuda_edwards.ed_add(E, *a11, **mask)),
                    _cuda_ms(torch, lambda: cuda_edwards.ed_add_plain(E, *a11, **mask), PLAIN_REPS),
                    f"W={width}{', masked' if masked else ''}",
                    (12 * n22 + masked) * 4 * width, 9 * mm8 * width)
@@ -431,7 +506,7 @@ def main() -> None:
                    "msm_zprize_tpu/curves/pallas_curve.py:494", ed_run, cuda_edwards.K12,
                    mod_p_err(FE, cuda_edwards.ed_double_k(E, *a12, k),
                              cuda_edwards.ed_double_k_plain(E, *a12, k)),
-                   _cuda_ms(torch, lambda: cuda_edwards.ed_double_k(E, *a12, k)),
+                   _graph_ms(torch, lambda: cuda_edwards.ed_double_k(E, *a12, k)),
                    _cuda_ms(torch, lambda: cuda_edwards.ed_double_k_plain(E, *a12, k), PLAIN_REPS),
                    f"W={width}, k={k}", 8 * n22 * 4 * width, 9 * k * mm8 * width)
     del a12
@@ -445,7 +520,7 @@ def main() -> None:
                cuda_codec.K13_FMA51,
                rows_err(FE, fc51, [cuda_codec.montmul_rows(FE, fc51, x, y)],
                         [cuda_codec.montmul_rows_plain(FE, fc51, x, y)]),
-               _cuda_ms(torch, lambda: cuda_codec.montmul_rows(FE, fc51, x, y)),
+               _graph_ms(torch, lambda: cuda_codec.montmul_rows(FE, fc51, x, y)),
                _cuda_ms(torch, lambda: cuda_codec.montmul_rows_plain(FE, fc51, x, y), PLAIN_REPS),
                f"({fc51.rows}, {N}), n = {n22}", 3 * fc51.rows * 4 * N, mm8 * N)
     del x, y
@@ -786,6 +861,7 @@ def main() -> None:
                                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         })
         entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+    print(f"[end] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

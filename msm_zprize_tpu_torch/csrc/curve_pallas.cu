@@ -7,6 +7,6 @@
 #include "curve.cuh"
 
 int msm::wei::limbs_fp22c(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W,
-                          int arg, const uint32_t* consts, cudaStream_t s) {
-  return launch_curve<LimbStore<Fp22c>>(kernel, ptrs, lds, W, arg, consts, s);
+                          int arg, int group, const uint32_t* consts, cudaStream_t s) {
+  return launch_curve<LimbStore<Fp22c>>(kernel, ptrs, lds, W, arg, group, consts, s);
 }

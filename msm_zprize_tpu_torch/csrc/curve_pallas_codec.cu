@@ -14,11 +14,11 @@
 #include "curve.cuh"
 
 int msm::wei::packed_fp22c(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W,
-                           int arg, const uint32_t* consts, cudaStream_t s) {
-  return launch_curve<RowStore<Fp22c, Packed31<9>>>(kernel, ptrs, lds, W, arg, consts, s);
+                           int arg, int group, const uint32_t* consts, cudaStream_t s) {
+  return launch_curve<RowStore<Fp22c, Packed31<9>>>(kernel, ptrs, lds, W, arg, group, consts, s);
 }
 
 int msm::wei::fma51_fp22c(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W,
-                          int arg, const uint32_t* consts, cudaStream_t s) {
-  return launch_curve<RowStore<Fp22c, Fma51Rows>>(kernel, ptrs, lds, W, arg, consts, s);
+                          int arg, int group, const uint32_t* consts, cudaStream_t s) {
+  return launch_curve<RowStore<Fp22c, Fma51Rows>>(kernel, ptrs, lds, W, arg, group, consts, s);
 }

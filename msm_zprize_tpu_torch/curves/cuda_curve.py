@@ -35,6 +35,7 @@ for bit.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -45,9 +46,8 @@ from ..fields.codec import CODEC_IDS, codec_id
 
 __all__ = [
     "Storage", "K14", "K14_FMA51", "aff_pair_add", "proj_add", "proj_double_k", "proj_double",
-    "proj_add_mixed",
-    "aff_pair_add_plain", "proj_add_plain", "proj_double_k_plain", "proj_double_plain",
-    "proj_add_mixed_plain",
+    "proj_add_mixed", "aff_pair_add_plain", "proj_add_plain", "proj_double_k_plain",
+    "proj_double_plain", "proj_add_mixed_plain",
 ]
 
 K3, K4, K4M, K5 = "k3_aff_pair_add", "k4_proj_add", "k4m_proj_add_masked", "k5_proj_double_k"
@@ -58,6 +58,10 @@ K14 = {k: "k14_" + k for k in (K3, K4, K4M, K5, K6, K7)}
 K14_FMA51 = {k: "k14_fma51_" + k for k in (K3, K4, K4M, K5, K6, K7)}
 # the kernel ids of the C entry msm_curve (csrc/curve.cuh::CURVE_K3..K7)
 KERNEL_IDS = {K3: 3, K4: 4, K4M: 4, K5: 5, K6: 6, K7: 7}
+# (counter key, width, K5's k, rows, field, the K4m/K7 flag tensor or None)
+# of every curve launch while this is a list (profile_msm's per-width table
+# sets it to [] and back to None); None: nothing is recorded
+LAUNCH_LOG: list | None = None
 
 
 @dataclass(frozen=True)
@@ -289,11 +293,16 @@ def launch(F, words, name, entry, ins, lds, width, batch, n_out, extra=(), n=Non
     return tuple(o.reshape((n,) + tuple(batch)) for o in outs)
 
 
-def _launch(W, name, ins, lds, width, batch, arg=0):
+def _launch(W, name, ins, lds, width, batch, arg=0, group=0):
     """Launch the curve kernel ``name`` on W's storage (``arg``: K4's masked
-    flag, K5's k), counted under ``name`` with the storage's prefix."""
+    flag, K5's k; ``group``: 0 for the instance the kernels' own width table
+    picks, else the G of a built instance), counted under ``name`` with the
+    storage's prefix, and logged where ``LAUNCH_LOG`` is a list."""
     st = W.storage
-    extra = (KERNEL_IDS[name], st.codec_arg(W.F), arg)
+    extra = (KERNEL_IDS[name], st.codec_arg(W.F), arg, group)
+    if LAUNCH_LOG is not None and width:
+        flags = ins[6] if name == K4M else (ins[5] if name == K7 else None)
+        LAUNCH_LOG.append((st.counter + name, width, arg if name == K5 else 0, st.rows, W.F, flags))
     return launch(W.F, st.words(W), st.counter + name, "msm_curve", ins, lds, width, batch, 3,
                   extra, n=st.rows)
 
@@ -315,6 +324,14 @@ def aff_pair_add(W, x1, y1, s1, v1, x2, y2, s2, v2):
 def proj_add(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
     """K4: complete projective add of (X1:Y1:Z1) and (X2:Y2:Z2); with
     ``mask`` (K4m), lanes where mask == 0 return (X1, Y1, Z1) bit for bit."""
+    return _proj_add(W, 0, X1, Y1, Z1, X2, Y2, Z2, mask=mask)
+
+
+def _proj_add(W, group, X1, Y1, Z1, X2, Y2, Z2, mask=None):
+    """``proj_add`` on the instance with G = ``group`` threads a point (one
+    of ``_groups``; 0: the one the width table picks, as ``proj_add``
+    does). For comparing the instances on the card; the engines call
+    ``proj_add``."""
     ops = (X1, Y1, Z1, X2, Y2, Z2)
     if _build.on_cpu(*ops, *(() if mask is None else (mask,))):
         return proj_add_plain(W, *ops, mask=mask)
@@ -324,7 +341,7 @@ def proj_add(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
         ins = ins + flag_rows((mask,), width)
         lds = lds + [0]
     return _launch(W, K4 if mask is None else K4M, ins, lds, width, batch,
-                   arg=int(mask is not None))
+                   arg=int(mask is not None), group=group)
 
 
 def proj_double(W, X1, Y1, Z1):
@@ -350,10 +367,37 @@ def proj_add_mixed(W, X1, Y1, Z1, x2, y2, inf2):
 
 def proj_double_k(W, X1, Y1, Z1, k: int):
     """K5: k chained complete doublings in one launch (k >= 1)."""
+    return _proj_double_k(W, 0, X1, Y1, Z1, k)
+
+
+def _proj_double_k(W, group, X1, Y1, Z1, k: int):
+    """``proj_double_k`` on the instance with G = ``group`` threads a point
+    (one of ``_groups``; 0: the width table's pick). For comparing the
+    instances on the card; the engines call ``proj_double_k``."""
     if k < 1:
         raise ValueError("proj_double_k needs k >= 1")
     if _build.on_cpu(X1, Y1, Z1):
         return proj_double_k_plain(W, X1, Y1, Z1, k)
     batch = X1.shape[1:]
     ins, lds, width = field_rows(W.storage.rows, (X1, Y1, Z1), batch)
-    return _launch(W, K5, ins, lds, width, batch, arg=k)
+    return _launch(W, K5, ins, lds, width, batch, arg=k, group=group)
+
+
+def _group_for(F, name: str, width: int) -> int:
+    """G, the threads a point, of the instance that kernel ``name`` (K4,
+    K4m, K5) launches with at ``width`` lanes on the field F: the kernels'
+    own table (csrc/curve.cuh::curve_group)."""
+    lib, _ = _build.library()
+    return lib.msm_curve_group(_build.field_shape(F), KERNEL_IDS[name], width, int(name == K4M))
+
+
+def _groups(F, name: str) -> tuple[int, ...]:
+    """The Gs of the instances of kernel ``name`` (K4, K4m, K5) built on the
+    field F, as the kernels' library lists them (csrc/curve.cuh::K4Groups,
+    K4mGroups, K5Groups)."""
+    lib, _ = _build.library()
+    shape, out = _build.field_shape(F), (ctypes.c_int * 8)()
+    count = lib.msm_curve_groups(shape, KERNEL_IDS[name], int(name == K4M), out, 8)
+    if not 0 < count <= 8:
+        raise RuntimeError(f"{name}: the library lists {count} instances on field shape {shape}")
+    return tuple(out[:count])

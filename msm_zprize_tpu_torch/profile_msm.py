@@ -23,7 +23,14 @@ reports them:
   Horner;
 * the serial chains: the device time per launch of K8 (the Fermat
   inverse on one lane) and of the K5 / K12 doubling chains, from the same
-  trace.
+  trace;
+* the curve kernels (K3-K7 and their K14 variants) launch by launch: for
+  each kernel and width (and K5's k), the launches per run, their device
+  time and their bound (``testing/bounds.py``: bytes over 3.35 TB/s or
+  multiply-adds over the card's integer rate, whichever is larger), and
+  the sums per run. The widths are those ``cuda_curve.LAUNCH_LOG`` logs
+  during the profiled runs, matched to the trace's curve kernels in launch
+  order.
 
 Needs a CUDA device; refuses to run without one.
 """
@@ -39,12 +46,15 @@ from collections import defaultdict
 
 import torch
 
+from . import _build
 from .counters import COUNTS
+from .curves import cuda_curve
 from .curves.params import ED_ON_BLS12_377, WEIERSTRASS_CURVES
 from .curves.weierstrass import ProjectivePoints
 from .msm import basic, batched_affine, engine
 from .msm.common import window_size
 from .parallel.api import TwistedEdwards, Weierstrass
+from .testing import bounds
 from .testing.points import ed_points_with_logs, points_with_logs
 
 __all__ = ["main"]
@@ -83,6 +93,41 @@ def _stages(label, cv, scalars, points, log_n):
     walls["bucket reduction"], per_window = _sync_ms(lambda: engine.reduce_buckets_log(sums, c0, ops))
     walls["horner"], _ = _sync_ms(lambda: engine.horner(per_window, c, ops.add, ops.double_k))
     return walls
+
+
+def _curve_table(head, kernels, launches, runs) -> None:
+    """Per curve kernel and width: launches, device time and bound per run,
+    from ``cuda_curve.LAUNCH_LOG``'s records matched to the trace's curve
+    kernels in launch order."""
+    events = sorted((e for e in kernels if "wei::" in e.name), key=lambda e: e.time_range.start)
+    if len(events) != len(launches):
+        raise AssertionError(f"{head}: {len(events)} curve kernels in the trace against "
+                             f"{len(launches)} logged launches")
+    rate = bounds.imad_per_s(torch)
+    rows = defaultdict(lambda: [0, 0.0, 0.0])  # (key, width, k) -> launches, device ms, bound ms
+    for e, (name, width, k, n, F, flags) in zip(events, launches):
+        # K4m: lanes with the mask set; K7: lanes whose affine operand is finite
+        computing = None if flags is None else int(
+            flags.ne(0).sum() if name.endswith(cuda_curve.K4M) else flags.eq(0).sum())
+        sid = _build.field_shape(F)
+        fn, nw, _ = _build.FIELD_SHAPES[sid]
+        mm = bounds.mont_imads(nw, 12 * fn > 32 * nw)
+        nbytes, imads = bounds.curve_work(name, n, mm, width, k, computing)
+        row = rows[(name, width, k)]
+        row[0] += 1
+        row[1] += (e.time_range.end - e.time_range.start) / 1e3
+        row[2] += bounds.bound_ms(nbytes, imads, rate)[0]
+    totals = defaultdict(lambda: [0, 0.0, 0.0])
+    for (name, width, k), (count, dev, bnd) in sorted(rows.items(), key=lambda kv: (kv[0][0], -kv[0][1])):
+        tot = totals[name]
+        tot[0] += count
+        tot[1] += dev
+        tot[2] += bnd
+        print(f"    {name} W={width}{f' k={k}' if k else ''}: {count // runs} launches, device "
+              f"{dev / runs:.4f} ms, bound {bnd / runs:.4f} ms per run")
+    print(f"[curve kernels] {head}: per run " + "; ".join(
+        f"{name} {count // runs} launches, device {dev / runs:.3f} ms, bound {bnd / runs:.3f} ms"
+        for name, (count, dev, bnd) in sorted(totals.items())))
 
 
 def main(argv=None) -> None:
@@ -142,12 +187,16 @@ def main(argv=None) -> None:
     COUNTS.clear()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for s in batches[:runs]:
-            run(s)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda_curve.LAUNCH_LOG = launches = []
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for s in batches[:runs]:
+                run(s)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cuda_curve.LAUNCH_LOG = None
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, end = 0.0, float("-inf")
@@ -165,6 +214,7 @@ def main(argv=None) -> None:
     for name, durs in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:14]:
         print(f"    {sum(durs) / 1e3 / runs:9.3f} ms per run  {len(durs) // runs:4d} launches  "
               f"max {max(durs) / 1e3:.4f} ms  {name}")
+    _curve_table(head, kernels, launches, runs)
     if path != default:
         return
 

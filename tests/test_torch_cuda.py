@@ -19,9 +19,15 @@ and K7 bit for bit; the halving layout on int32 CUDA tensors bit-exact
 against the CPU; K13 and the K14 variants of K3-K7 on every codec storage
 (PackedCodec on each curve, Fma51Codec on Pallas; K13 also on both codecs
 of the n = 22 Edwards field) exact mod p with every output below 2p, their
-pass-through lanes bit for bit. An Fp22 and a Pallas launch on the same
-limbs take different shape IDs, and the C entries refuse a Pallas field
-under Fp22's.
+pass-through lanes bit for bit. K4, K4m and K5 on every storage also run
+each built instance (G threads a point, as the library lists them) at widths
+that cut a group, a warp and a block (1, 5, 33, 4097), on strided operands
+with 2p - 1 and 2p - 2 among them, K5 at k = 1, 5 and 12, and every entry
+of the kernels' width table through the engines' wrappers; an instance
+that is not built (the one-thread K4m everywhere, the one-thread K4 on
+12-word shapes) is refused. An Fp22 and a
+Pallas launch on the same limbs take different shape IDs, and the C
+entries refuse a Pallas field under Fp22's.
 """
 
 import numpy as np
@@ -80,6 +86,78 @@ def _vals(G, dev, rng, width, edges=(), bound=None):
     vals = list(edges) + [int.from_bytes(rng.bytes(56), "little") % bound
                           for _ in range(width - len(edges))]
     return torch.as_tensor(G.pack(vals, montgomery=False), device=dev)
+
+
+GROUP_WIDTHS = (1, 5, 33, 4097)  # cut a group, a warp, a block of every G
+
+
+def _group_checks(F, Wc, codec, a, halves, m, label):
+    """Every built instance of K4, K4m and K5 (G threads a point, as
+    ``cuda_curve._groups`` reads them from the library) against the twin at
+    widths that cut a group or a block, on the strided halves too (K4,
+    K4m), K5 at k = 1, 5 and 12, the
+    pass-through lanes of K4m bit for bit; the width table's pick at each
+    width among them, and an instance that is not built refused."""
+    same = ((lambda g, w: torch.equal(F.fully_reduce(g), F.fully_reduce(w))) if codec is None
+            else (lambda g, w: _rows_equal(F, codec, g, w)))
+    built = {name: cuda_curve._groups(F, name) for name in (cuda_curve.K4, cuda_curve.K4M,
+                                                            cuda_curve.K5)}
+    reached = set()
+    for width in GROUP_WIDTHS:
+        ops = [x[:, :width] for x in a]
+        strided = [x[:, :width] for x in halves]
+        mask = m[:width]
+        for name, groups in built.items():
+            pick = cuda_curve._group_for(F, name, width)
+            assert pick in groups, (label, name, width, pick)
+            reached.add((name, pick))
+            for G in groups:
+                if name == cuda_curve.K5:
+                    for k in (1, 5, 12):
+                        got = cuda_curve._proj_double_k(Wc, G, *ops[:3], k)
+                        want = cuda_curve.proj_double_k_plain(Wc, *ops[:3], k)
+                        assert all(map(same, got, want)), (label, name, G, width, k)
+                    continue
+                kw = {} if name == cuda_curve.K4 else {"mask": mask}
+                for args in (ops, strided):
+                    got = cuda_curve._proj_add(Wc, G, *args, **kw)
+                    want = cuda_curve.proj_add_plain(Wc, *args, **kw)
+                    assert all(map(same, got, want)), (label, name, G, width)
+                    if kw:  # masked-off lanes are P1's rows, bit for bit
+                        for g, x1 in zip(got, args[:3]):
+                            assert torch.equal(g[:, mask == 0], x1[:, mask == 0]), (label, G, width)
+    # every entry of the width table, through the engines' wrappers, at the
+    # first width (powers of two and their neighbours up to 2^20) that picks it
+    first = {}
+    for e in range(21):
+        for width in (max(1, (1 << e) - 1), 1 << e, (1 << e) + 1):
+            for name in built:
+                first.setdefault((name, cuda_curve._group_for(F, name, width)), width)
+    for (name, G), width in sorted(first.items()):
+        if (name, G) in reached:
+            continue
+        assert G in built[name], (label, name, width, G)
+        ops = [_tile(x, width) for x in a]
+        if name == cuda_curve.K5:
+            got = cuda_curve.proj_double_k(Wc, *ops[:3], 5)
+            want = cuda_curve.proj_double_k_plain(Wc, *ops[:3], 5)
+        else:
+            kw = {} if name == cuda_curve.K4 else {"mask": _tile(m, width)}
+            got, want = cuda_curve.proj_add(Wc, *ops, **kw), cuda_curve.proj_add_plain(Wc, *ops, **kw)
+        assert all(map(same, got, want)), (label, name, G, width)
+    # the one-thread K4 only on 8-word shapes, where the table picks it
+    nw = _build.FIELD_SHAPES[_build.field_shape(F)][1]
+    assert (1 in built[cuda_curve.K4]) == (nw == 8) and 1 not in built[cuda_curve.K4M], label
+    for G, kw in ((7, {}), (1, {"mask": m})) + (() if nw == 8 else ((1, {}),)):
+        with pytest.raises(RuntimeError):
+            cuda_curve._proj_add(Wc, G, *a, **kw)
+    with pytest.raises(RuntimeError):
+        cuda_curve._proj_double_k(Wc, 1, *a[:3], 2)
+
+
+def _tile(x, width):
+    """x's lanes repeated to ``width`` lanes."""
+    return x.repeat(*([1] * (x.dim() - 1)), -(-width // x.shape[-1]))[..., :width].contiguous()
 
 
 def _weierstrass_checks(dev, rng, params):
@@ -144,6 +222,7 @@ def _weierstrass_checks(dev, rng, params):
         for name, keep, p1 in (("K4m strided", m == 0, halves[:3]), ("K7", inf == 1, a[:3])):
             for g, x1 in zip(pairs[name][0], p1):
                 assert torch.equal(g[:, keep], x1[:, keep]), (params.label, name)
+        _group_checks(F, Wc, codec, a, halves, m, params.label)
         if codec is not None:  # K13: beta * x of the codec mode, counted under its codec's key
             key = cuda_codec.K13_FMA51 if isinstance(codec, Fma51Codec) else cuda_codec.K13
             before = COUNTS[key]
