@@ -19,14 +19,17 @@ non-zero and no result line is printed):
    exact mod p, the pass-through lanes of K4m and K7 bit for bit), with the
    card's own time per call (CUDA-graph replay, so no host enqueue time),
    the twin's CUDA-event time, and the bound: the least time the card could
-   take for the same work. K4, K4m and K5 run every built instance (G
-   threads a point, as the kernels' library lists them), each against the
-   twin and timed twice in turns, K4 over the main path's widths on limbs
-   (450,560 down to 1 at 2^16); the row's time is the instance the kernels'
-   width table picks. The timed calls replay one input set, which stays in
-   the 50 MB L2 below ~45k lanes; per-MSM sums come from ``profile_msm``.
-   K5's line also gives its latency floor: its dependent product levels
-   times one product's latency (K8's time over its products);
+   take for the same work. K3, K4, K4m and K5 run every built
+   instance (G threads a point, as the kernels' library lists them), each
+   against the twin and timed twice in turns: K3 on every storage at the
+   main round's and the residual's widths, its code flushed from the L2
+   before each call (as in the MSM, where it follows the slot gather); K4
+   over the main path's widths on limbs (450,560 down to 1 at 2^16); the
+   row's time is the instance the kernels' width table picks. The other
+   timed calls replay one input set, which stays in the 50 MB L2 below
+   ~45k lanes; per-MSM sums come from ``profile_msm``. K5's and K12's
+   lines also give their latency floors: dependent product levels times
+   one product's latency (K8's time over its products);
 3. BLS12-377: the MSM at N = 8 and its edge cases against two host oracles
    (double-and-add per point, and the known discrete logs);
 4. BLS12-377: the 2^16 MSM against its known-discrete-log result, with the
@@ -112,10 +115,8 @@ def _cuda_ms(torch, fn, reps=REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _graph_ms(torch, fn, reps=REPS) -> float:
-    """The card's own time of one fn() call in ms: a CUDA graph of reps
-    back-to-back calls, replayed once untimed and once between two CUDA
-    events, so that no host enqueue time is in it (the kernels' timing)."""
+def _captured(torch, fn, reps):
+    """A CUDA graph of reps back-to-back fn() calls, replayed once untimed."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -126,19 +127,53 @@ def _graph_ms(torch, fn, reps=REPS) -> float:
         for _ in range(reps):
             fn()
     graph.replay()
+    return graph
+
+
+def _replay_ms(torch, graph, reps) -> float:
+    """One replay of ``graph`` between two CUDA events, in ms per call."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     graph.replay()
     end.record()
     end.synchronize()
-    del graph
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(torch, fn, reps=REPS) -> float:
+    """The card's own time of one fn() call in ms: a CUDA graph of reps
+    back-to-back calls, replayed once untimed and once between two CUDA
+    events, so that no host enqueue time is in it (the kernels' timing)."""
+    graph = _captured(torch, fn, reps)
+    ms = _replay_ms(torch, graph, reps)
+    del graph
+    return ms
+
+
+def _cold_ms(torch, fn, operands, reps=REPS, rounds=5) -> float:
+    """The card's own time of one fn() call that finds its code out of the
+    50 MB L2 and its ``operands`` in it, as the MSM's K3 does after the
+    slot gather that writes them: a CUDA graph of reps (flush, fn()) pairs,
+    where the flush reads and writes 96 MB and then reads the operands, and
+    a graph of reps flushes alone, replayed in turns; the median over
+    ``rounds`` turns of their difference."""
+    scratch = torch.zeros(24 << 20, dtype=torch.int32, device="cuda")
+
+    def flush():
+        scratch.add_(1)
+        for a in operands:
+            a.sum()
+
+    both, alone = _captured(torch, lambda: (flush(), fn()), reps), _captured(torch, flush, reps)
+    diffs = [_replay_ms(torch, both, reps) - _replay_ms(torch, alone, reps) for _ in range(rounds)]
+    del both, alone
+    return statistics.median(diffs)
 
 
 def _sass_sizes(bindir: Path, lib: Path) -> dict:
     """SASS instructions and local-memory loads and stores (LDL, STL) of each
-    curve kernel of the built library, by demangled name (``cuobjdump
-    -sass`` and ``cu++filt`` of the toolkit in ``bindir``)."""
+    curve kernel of the built library, Weierstrass and Edwards, by demangled
+    name (``cuobjdump -sass`` and ``cu++filt`` of the toolkit in ``bindir``)."""
     out = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(lib)], capture_output=True,
                          text=True, check=True, timeout=300).stdout
     sizes, name = {}, None
@@ -149,7 +184,7 @@ def _sass_sizes(bindir: Path, lib: Path) -> dict:
         elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
             sizes[name][0] += 1
             sizes[name][1] += bool(re.search(r"\b(LDL|STL)", line))
-    names = [k for k in sizes if "wei" in k]
+    names = [k for k in sizes if "3msm3wei" in k or "3msm2ed" in k]
     plain = subprocess.run([str(bindir / "cu++filt")], input="\n".join(names), capture_output=True,
                            text=True, check=True, timeout=60).stdout.splitlines()
     return {p.replace("msm::", "").replace("wei::", ""): sizes[k] for k, p in zip(names, plain)}
@@ -229,6 +264,13 @@ def main() -> None:
         return max((G.fully_reduce(g).long() - G.fully_reduce(w).long()).abs().max().item()
                    for g, w in zip(got, want))
 
+    def curve_err(G, got, want):
+        """mod_p_err of a curve kernel's limbs; every output must also hold a
+        value below 2p."""
+        if not all(torch.equal(G._sub_const_select(g, G.two_p_limbs), g) for g in got):
+            raise AssertionError("curve kernel output at or above 2p")
+        return mod_p_err(G, got, want)
+
     def rows_err(G, codec, got, want):
         """mod_p_err of codec rows, through their digit planes; every output
         must also hold a value below 2p."""
@@ -257,6 +299,33 @@ def main() -> None:
     src = "msm_zprize_tpu_torch/csrc/"
     curve_line = "msm_zprize_tpu/curves/pallas_curve.py:{}".format
 
+    def instances(label, shape, args, err_of, inst, plain, groups, pick, chain=0, product_ms=0.0,
+                  cold=False):
+        """Every built instance (G threads a point: ``groups``) of a kernel
+        against the twin on ``args``, each timed twice in turns (G
+        ascending, then descending), by ``_cold_ms`` where ``cold`` (a
+        launch that follows other work, as K3 follows the slot gather),
+        else ``_graph_ms`` (a launch after one of its own, as K4's tree
+        levels are); prints them and, for a chain of ``chain`` dependent
+        product levels of ``product_ms`` each, its latency floor; returns
+        (the worst error, the width table's pick's time, the twin's time)
+        for its row."""
+        want = plain(args)
+        worst = max(err_of(inst(g, args), want) for g in groups)
+        del want
+        times = {g: [] for g in groups}
+        for g in groups + groups[::-1]:
+            run = lambda: inst(g, args)
+            times[g].append(_cold_ms(torch, run, args) if cold else _graph_ms(torch, run))
+        ms = {g: sum(t) / len(t) for g, t in times.items()}
+        floor = (f"; latency floor {chain} product levels x {product_ms * 1e3:.3f} us = "
+                 f"{chain * product_ms:.4f} ms" if chain else "")
+        print(f"[2 instances] {label} {shape}{' (code flushed from the L2 before each call)' if cold else ''}: "
+              f"width table's G = {pick}; "
+              + ", ".join(f"G={g} {ms[g]:.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
+                          for g, t in times.items()) + floor)
+        return worst, ms[pick], _cuda_ms(torch, lambda: plain(args), PLAIN_REPS)
+
     def weierstrass_rows(cv, tag, units, runs):
         """K1, K2, K8 and K3-K7 of one Weierstrass curve at the shapes of its
         2^16 MSM, on each storage in ``units`` ((ops, curve unit, run of its
@@ -275,6 +344,8 @@ def main() -> None:
         wh = Kg * ((2 * N + Lg) // 2 + 1)  # level 1 of the halving engine
         c0g = max((cg - 1) // 2, 1)
         wr = Kg * (Lg >> c0g)  # the affine reduction's mixed adds
+        mr = min(32, slot_count(2 * N, Lg))
+        wres = (mr + (mr & 1)) // 2 * min(2048, Kg * Lg)  # level 1 of the compact residual
 
         x, y = field_elems(G, N, edges + (4 * G.p - 1,)), field_elems(G, N, (4 * G.p - 1,) + edges)
         kernel_row(f"k1_{tag}", f"montmul_{tag}", "K1", "montmul.cu",
@@ -295,27 +366,14 @@ def main() -> None:
         print(f"    one dependent product's latency on {tag} (K8 on one lane over its "
               f"{k8_products} products): {product_ms * 1e3:.3f} us")
 
-        def instances(kernel, shape, args, err_of, inst, plain, chain=0):
-            """Every built instance of ``kernel`` (G threads a point) against
-            the twin on ``args``, each timed twice in turns (G ascending, then
-            descending); prints them and, for a chain of ``chain`` dependent
-            product levels, its latency floor; returns (the worst error, the
-            width table's pick's time, the twin's time) for its row."""
-            want = plain(args)
-            gs = cuda_curve._groups(G, kernel)
-            worst = max(err_of(inst(g, args), want) for g in gs)
-            del want
-            times = {g: [] for g in gs}
-            for g in gs + gs[::-1]:
-                times[g].append(_graph_ms(torch, lambda: inst(g, args)))
-            ms = {g: sum(t) / len(t) for g, t in times.items()}
-            pick = cuda_curve._group_for(G, kernel, args[0].shape[-1])
-            floor = (f"; latency floor {chain} product levels x {product_ms * 1e3:.3f} us = "
-                     f"{chain * product_ms:.4f} ms" if chain else "")
-            print(f"[2 instances] {kernel} {tag} {shape}: width table's G = {pick}; "
-                  + ", ".join(f"G={g} {ms[g]:.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
-                              for g, t in times.items()) + floor)
-            return worst, ms[pick], _cuda_ms(torch, lambda: plain(args), PLAIN_REPS)
+        def wei_instances(Wc, kernel, shape, args, err_of, inst, plain, chain=0):
+            """``instances`` of curve kernel ``kernel`` on the storage of Wc, as
+            the kernels' library lists them, and its width table's pick (K3
+            timed cold)."""
+            return instances(f"{kernel} {tag}", shape, args, err_of, inst, plain,
+                             cuda_curve._groups(Wc, kernel),
+                             cuda_curve._group_for(Wc, kernel, args[0].shape[-1]), chain, product_ms,
+                             cold=kernel == cuda_curve.K3)
         scal = cv.random_scalars(N, seed=SEED, device=dev)
         gm, gs = cuda_scalar.glv_digits(Sg, scal, cg, Kg)
         wm, ws = cuda_scalar.glv_digits_plain(Sg, scal, cg, Kg)
@@ -337,7 +395,7 @@ def main() -> None:
                 nr, cname, pre, side = n, "", "", runs
                 keys = {k: k for k in cuda_curve.KERNEL_IDS}
                 kid = lambda k: k
-                err = lambda got, want: mod_p_err(G, got, want)
+                err = lambda got, want: curve_err(G, got, want)
                 elem = lambda width: field_elems(G, width, edges)
             else:
                 # K4m, K6 and K7 are on no path of a codec mode: 0 launches in
@@ -366,15 +424,18 @@ def main() -> None:
                            curve_line(line) if codec is None else curve_line(149), run_,
                            keys[getattr(cuda_curve, k.upper())], *rest)
 
-            a3 = [elem(w1), elem(w1), flags(w1), flags(w1), elem(w1), elem(w1), flags(w1), flags(w1)]
-            row("K3", "aff_pair_add", 372, run,
-                err(cuda_curve.aff_pair_add(Wc, *a3), cuda_curve.aff_pair_add_plain(Wc, *a3)),
-                _graph_ms(torch, lambda: cuda_curve.aff_pair_add(Wc, *a3)),
-                _cuda_ms(torch, lambda: cuda_curve.aff_pair_add_plain(Wc, *a3), PLAIN_REPS),
-                f"W={w1}, {nr} rows", (7 * nr + 4) * 4 * w1, 9 * mm * w1)
-            del a3
-            # K4, K4m and K5: every instance (G threads a point) against the
-            # twin and timed in turns; the row's time is the width table's pick
+            # K3, K4, K4m and K5: every instance (G threads a point) against
+            # the twin and timed in turns; the row's time is the width table's
+            # pick. K3: the main round's level 1 and the compact residual's
+            for width in (w1, wres):
+                a3 = [elem(width), elem(width), flags(width), flags(width), elem(width),
+                      elem(width), flags(width), flags(width)]
+                row("K3", "aff_pair_add", 372, run, *wei_instances(
+                    Wc, cuda_curve.K3, f"W={width}, {nr} rows", a3, err,
+                    lambda G, a: cuda_curve._aff_pair_add(Wc, G, *a),
+                    lambda a: cuda_curve.aff_pair_add_plain(Wc, *a)),
+                    f"W={width}, {nr} rows", (7 * nr + 4) * 4 * width, 9 * mm * width)
+                del a3
             # limbs: the main round's tree levels, the compact residual's
             # 8 x 2048 lanes, the fold and reduction widths Kg Lg 2^(1-i)
             # (45,056 down to 176 at 2^16) and Horner's 1
@@ -383,15 +444,15 @@ def main() -> None:
                          if codec is None else (w1 // 2, 1))
             for width in k4_widths:
                 a4 = [elem(width) for _ in range(6)]
-                row("K4", "proj_add", 382, run, *instances(
-                    cuda_curve.K4, f"W={width}, {nr} rows", a4, err,
+                row("K4", "proj_add", 382, run, *wei_instances(
+                    Wc, cuda_curve.K4, f"W={width}, {nr} rows", a4, err,
                     lambda G, a: cuda_curve._proj_add(Wc, G, *a),
                     lambda a: cuda_curve.proj_add_plain(Wc, *a)),
                     f"W={width}, {nr} rows", 9 * nr * 4 * width, 12 * mm * width)
             for width, k in ((Kg, c0g), (1, cg)):
                 a5 = [elem(width) for _ in range(3)]
-                row("K5", "proj_double_k", 324, run, *instances(
-                    cuda_curve.K5, f"W={width}, k={k}, {nr} rows", a5, err,
+                row("K5", "proj_double_k", 324, run, *wei_instances(
+                    Wc, cuda_curve.K5, f"W={width}, k={k}, {nr} rows", a5, err,
                     lambda G, a, k=k: cuda_curve._proj_double_k(Wc, G, *a, k),
                     lambda a, k=k: cuda_curve.proj_double_k_plain(Wc, *a, k), chain=2 * k),
                     f"W={width}, k={k}, {nr} rows", 6 * nr * 4 * width, 8 * k * mm * width)
@@ -399,8 +460,8 @@ def main() -> None:
             a4 = [elem(wm4) for _ in range(6)]
             m4 = flags(wm4)
             off = m4 == 0  # masked-off lanes are P1, bit for bit
-            row("K4m", "proj_add_masked", 382, side["halving"], *instances(
-                cuda_curve.K4M, f"W={wm4}, masked, {nr} rows", a4,
+            row("K4m", "proj_add_masked", 382, side["halving"], *wei_instances(
+                Wc, cuda_curve.K4M, f"W={wm4}, masked, {nr} rows", a4,
                 lambda got, want: max(err(got, want),
                                       raw_err([g[:, off] for g in got], [a[:, off] for a in a4[:3]])),
                 lambda G, a: cuda_curve._proj_add(Wc, G, *a, mask=m4),
@@ -456,13 +517,16 @@ def main() -> None:
 
     e = FE.p - 2  # batch_inverse's one Fermat inverse, on one lane
     x1 = field_elems(FE, 1)
+    k8_ms = _graph_ms(torch, lambda: cuda_mul.exp_const(FE, x1, e))
+    k8_products = e.bit_length() + bin(e).count("1")
+    ed_product_ms = k8_ms / k8_products  # one dependent product's latency on one lane
     kernel_row("k8", "exp_const", "K8", "montmul.cu",
                "msm_zprize_tpu/fields/pallas_mul.py:237", ed_run, cuda_mul.K8,
                mod_p_err(FE, [cuda_mul.exp_const(FE, x1, e)], [FE.exp_const_plain(x1, e)]),
-               _graph_ms(torch, lambda: cuda_mul.exp_const(FE, x1, e)),
-               _cuda_ms(torch, lambda: FE.exp_const_plain(x1, e), PLAIN_REPS),
-               f"({n22}, 1), e = p - 2", 2 * n22 * 4,
-               (e.bit_length() + bin(e).count("1")) * mm8)
+               k8_ms, _cuda_ms(torch, lambda: FE.exp_const_plain(x1, e), PLAIN_REPS),
+               f"({n22}, 1), e = p - 2", 2 * n22 * 4, k8_products * mm8)
+    print(f"    one dependent product's latency on ed-on-bls12-377 (K8 on one lane over its "
+          f"{k8_products} products): {ed_product_ms * 1e3:.3f} us")
 
     scal = ed.random_scalars(N, seed=SEED, device=dev)
     gm, gs = cuda_scalar.simple_digits(scal, ce, Ke)
@@ -499,15 +563,19 @@ def main() -> None:
                    (12 * n22 + masked) * 4 * width, 9 * mm8 * width)
     del a11
 
+    # K12 (G = 4 threads a point) against the twin, with its latency floor:
+    # 3 dependent product levels a doubling
     c0e = max((ce - 1) // 2, 1)
     for width, k in ((Ke, c0e), (1, ce)):
         a12 = [field_elems(FE, width) for _ in range(4)]
+        ms12 = _graph_ms(torch, lambda: cuda_edwards.ed_double_k(E, *a12, k))
+        print(f"[2] K12 W={width}, k={k}: {ms12:.4f} ms; latency floor {3 * k} product levels x "
+              f"{ed_product_ms * 1e3:.3f} us = {3 * k * ed_product_ms:.4f} ms")
         kernel_row("k12", "ed_double_k", "K12", "edwards.cu",
                    "msm_zprize_tpu/curves/pallas_curve.py:494", ed_run, cuda_edwards.K12,
-                   mod_p_err(FE, cuda_edwards.ed_double_k(E, *a12, k),
+                   curve_err(FE, cuda_edwards.ed_double_k(E, *a12, k),
                              cuda_edwards.ed_double_k_plain(E, *a12, k)),
-                   _graph_ms(torch, lambda: cuda_edwards.ed_double_k(E, *a12, k)),
-                   _cuda_ms(torch, lambda: cuda_edwards.ed_double_k_plain(E, *a12, k), PLAIN_REPS),
+                   ms12, _cuda_ms(torch, lambda: cuda_edwards.ed_double_k_plain(E, *a12, k), PLAIN_REPS),
                    f"W={width}, k={k}", 8 * n22 * 4 * width, 9 * k * mm8 * width)
     del a12
 

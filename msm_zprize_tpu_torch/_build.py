@@ -49,8 +49,8 @@ _ENTRIES = {
     "msm_simple_digits": [_P, _P, _W, _I, _I, _I, _P],
     # K3-K7 and K14: (ptrs, lds, width, shape, kernel, codec, arg, group, consts, stream)
     "msm_curve": [_P, _P, _W, _I, _I, _I, _I, _I, _P, _P],
-    "msm_curve_group": [_I, _I, _W, _I],
-    "msm_curve_groups": [_I, _I, _I, _P, _I],
+    "msm_curve_group": [_I, _I, _I, _W, _I],
+    "msm_curve_groups": [_I, _I, _I, _I, _P, _I],
     "msm_ed_pair_add": [_P, _P, _W, _I, _P, _P],
     "msm_ed_add": [_P, _P, _W, _I, _I, _P, _P],
     "msm_ed_double_k": [_P, _P, _W, _I, _I, _P, _P],

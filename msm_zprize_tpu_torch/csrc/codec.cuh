@@ -83,6 +83,7 @@ __device__ __forceinline__ void store_rows(const Fe<S>& a, int32_t* __restrict__
 template <class S_>
 struct LimbStore {
   using S = S_;
+  static constexpr bool ROWS = false;  // 12-bit limbs, not a row codec
   static __device__ __forceinline__ Fe<S> load(const Operands& ops, int i, int64_t lane,
                                                const FieldConsts<S>& fc) {
     return load_reduced(ops, i, lane, fc);
@@ -99,6 +100,7 @@ struct LimbStore {
 template <class S_, class C>
 struct RowStore {
   using S = S_;
+  static constexpr bool ROWS = true;
   static __device__ __forceinline__ Fe<S> load(const Operands& ops, int i, int64_t lane,
                                                const FieldConsts<S>& fc) {
     return cond_sub(load_rows<S, C>(reinterpret_cast<const int32_t*>(ops.p[i]), ops.ld[i], lane),

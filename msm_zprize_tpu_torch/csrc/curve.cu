@@ -24,11 +24,12 @@ constexpr CurveUnitEntry CURVE_UNITS[] = {
     {Fp22c::ID, CODEC_FMA51, fma51_fp22c},
 };
 
-// fn(S{}) for the shape S with ID `shape` when a curve unit builds it, else -1.
+// fn(S{}) for the shape S with ID `shape` when a curve unit builds the
+// storage (shape, codec), else -1.
 template <class Fn>
-int with_curve_shape(int shape, Fn fn) {
+int with_curve_unit(int shape, int codec, Fn fn) {
   for (const auto& unit : CURVE_UNITS) {
-    if (unit.shape == shape) return with_shape(shape, fn);
+    if (unit.shape == shape && unit.codec == codec) return with_shape(shape, fn);
   }
   return -1;
 }
@@ -57,20 +58,20 @@ extern "C" int msm_curve(const uint64_t* ptrs, const int64_t* lds, int64_t W, in
 }
 
 // The G (threads a point) of the instance that msm_curve launches for
-// kernel `kernel` (with `arg` as msm_curve takes it) at width W on the field
-// shape `shape` when group is 0; -1 for a shape no unit builds.
-extern "C" int msm_curve_group(int shape, int kernel, int64_t W, int arg) {
-  return msm::wei::with_curve_shape(shape, [&](auto s) {
-    return msm::wei::curve_group<decltype(s)>(kernel, W, arg != 0);
+// kernel `kernel` (with `arg` as msm_curve takes it) at width W on the
+// storage (shape, codec) when group is 0; -1 for a storage no unit builds.
+extern "C" int msm_curve_group(int shape, int codec, int kernel, int64_t W, int arg) {
+  return msm::wei::with_curve_unit(shape, codec, [&](auto s) {
+    return msm::wei::curve_group<decltype(s)>(kernel, W, arg != 0, codec != 0);
   });
 }
 
-// The Gs of the instances of kernel `kernel` (K4 with `masked`, or K5)
-// built on the field shape `shape`, into out[0, cap): the ones msm_curve
-// takes as its group; returns how many there are, -1 for a shape no unit
+// The Gs of the instances of kernel `kernel` (K3, K4 with `masked`, or K5)
+// built on the storage (shape, codec), into out[0, cap): the ones msm_curve
+// takes as its group; returns how many there are, -1 for a storage no unit
 // builds.
-extern "C" int msm_curve_groups(int shape, int kernel, int masked, int* out, int cap) {
-  return msm::wei::with_curve_shape(shape, [&](auto s) {
-    return msm::wei::built_groups<decltype(s)>(kernel, masked != 0, out, cap);
+extern "C" int msm_curve_groups(int shape, int codec, int kernel, int masked, int* out, int cap) {
+  return msm::wei::with_curve_unit(shape, codec, [&](auto s) {
+    return msm::wei::built_groups<decltype(s)>(kernel, masked != 0, codec != 0, out, cap);
   });
 }

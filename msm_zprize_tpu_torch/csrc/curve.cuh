@@ -1,7 +1,7 @@
 // K3, K4, K4m, K5, K6, K7: complete short-Weierstrass (a = 0) point
-// formulas on Montgomery-form coordinates, one thread a lane (K4 and K4m
-// also, and K5 only, with G threads a lane: the group design), and their
-// launcher. Each kernel is a template on its storage policy St (codec.cuh),
+// formulas on Montgomery-form coordinates, one thread a lane (K3 and K4
+// also, K4m and K5 only, with G threads a lane: the group design), and
+// their launcher. Each kernel is a template on its storage policy St (codec.cuh),
 // which names the field shape St::S: LimbStore<S> reads and writes (NL, W)
 // 12-bit limb tensors (K3-K7), RowStore<S, C> (C::ROWS, W) row-codec
 // tensors (K14, the same formulas on PackedCodec or Fma51Codec storage).
@@ -57,8 +57,8 @@
 // same bounds: every product and add on any thread of a group takes and
 // returns values < 2p.
 //
-// What bounds them on an H100. One thread a point (K3, K6, K7, and K4 at
-// G = 1): about ten live 384-bit values and the CIOS accumulator take
+// What bounds them on an H100. One thread a point (K6, K7, and K3 and K4
+// at G = 1): about ten live 384-bit values and the CIOS accumulator take
 // 152-246 registers a thread, so an SM holds 2-3 blocks of 128 threads, and
 // the formula's 8-12 products are inlined one after another, 10-16k SASS
 // instructions (160-250 KB) that one lane walks serially: measured, the
@@ -66,26 +66,29 @@
 // one-lane chain takes ~2.8x its products' latency a product (the code
 // does not stay in the instruction cache).
 //
-// K4, K4m and K5 also run as the group design (below): G threads a point,
-// splitting each level of the formula's independent products (rcb7: two
-// levels of six; rcb9: two levels of four a doubling) among the group,
-// exchanging values through shared memory. It replaces, for K4/K4m,
-// pallas_curve.py:272-289 (_proj_add_body, rcb7 at :515) and, for K5,
-// :302-324 (_proj_double_k_body, k x rcb9 at :566). A one-lane chain then
-// waits on 2 dependent products a level instead of 8 or 12, each level
+// K3, K4, K4m and K5 also run as the group design (below, group.cuh): G
+// threads a point, splitting each level of the formula's independent
+// products (rcb7: two levels of six; K3's rcb7 with unit Z: a level of
+// three, then rcb7's second level; rcb9: two levels of four a doubling)
+// among the group, exchanging values through shared memory. It replaces,
+// for K3, pallas_curve.py:345-372 (_aff_pair_add_body, rcb7_unitz at
+// :589-641), for K4/K4m :272-289 (_proj_add_body, rcb7 at :515) and, for
+// K5, :302-324 (_proj_double_k_body, k x rcb9 at :566). A one-lane chain
+// then waits on 2 dependent products a level instead of 8 or 12, each level
 // calls mont_mul from one loop (1.6-5.3k SASS instructions a kernel),
 // 40-128 registers fit 4-5 blocks an SM on 12 words, and the loads and
 // stores are the block's, lanes contiguous. What bounds the wide levels now
 // is instruction issue: ~1,100 SASS instructions a 12-word product against
 // the 588 multiply-adds the operation bound counts (2.7x the bound at G =
 // 2; the glue between levels runs on every thread of a group). The table
-// curve_group (below) picks G by width and shape.
+// curve_group (below) picks G by width, shape and storage.
 #pragma once
 
 #include <type_traits>
 #include <utility>
 
 #include "codec.cuh"
+#include "group.cuh"
 
 namespace msm {
 namespace wei {
@@ -166,6 +169,7 @@ __device__ __forceinline__ void rcb8(const Fe<S>& X1, const Fe<S>& Y1, const Fe<
 }
 
 // ---- K3: fused level-1 pair add of two signed affine slots ------------------
+// One thread a point (G = 1), built only where curve_group picks it.
 // ops: x1 y1 s1 v1 x2 y2 s2 v2 X3 Y3 Z3
 template <class St>
 __global__ void __launch_bounds__(BLOCK_THREADS)
@@ -221,17 +225,9 @@ proj_add_kernel(const __grid_constant__ Operands ops, int64_t W,
   St::store(ops, 8, lane, Z3);
 }
 
-// ---- K4, K4m, K5 with G threads per point (the group design) -------------------
-
-// A block of BLOCK_THREADS threads handles Group<G>::POINTS points: each warp
-// holds 32 / G groups of G consecutive threads (a group never straddles a
-// warp; with G = 6 two threads a warp idle). The block stages its points'
-// input coordinates in shared memory (St::load: rows become register words
-// once, lanes contiguous across the block's threads), each group then runs
-// its formula's levels of independent products, G threads at a time, one
-// product per thread per round (a loop around one mont_mul call), exchanging
-// values through shared memory between levels (__syncwarp), and the block
-// stores the outputs as it loaded the inputs (St::store, lanes contiguous).
+// ---- K3, K4, K4m, K5 with G threads per point (the group design) --------------
+// group.cuh sets out the design and holds its helpers; St::load and
+// St::store stage a block's coordinates.
 
 // mul_b3 from the top bit of 3b (>= 1, as b != 0): a, then one doubling and
 // at most one add for each bit below it (f_small's chain without its two
@@ -248,70 +244,6 @@ __device__ __forceinline__ Fe<S> mul_b3_lead(const Fe<S>& a, const FieldConsts<S
   return r;
 }
 
-template <int G>
-struct Group {
-  static_assert(G >= 2 && G <= 8, "a group holds 2-8 threads");
-  static constexpr int PER_WARP = 32 / G;                           // groups a warp
-  static constexpr int POINTS = PER_WARP * (BLOCK_THREADS / 32);   // points a block
-  static constexpr int STRIDE = POINTS + 1;  // words between a slot's words (banks)
-  static unsigned grid(int64_t W) { return static_cast<unsigned>((W + POINTS - 1) / POINTS); }
-};
-
-// Field value `slot` of point pt in a block's shared slots: word w at
-// sh[(slot * NW + w) * STRIDE + pt].
-template <class S, int STRIDE>
-__device__ __forceinline__ Fe<S> sh_get(const uint32_t* sh, int slot, int pt) {
-  Fe<S> r;
-#pragma unroll
-  for (int w = 0; w < S::NW; ++w) r.v[w] = sh[(slot * S::NW + w) * STRIDE + pt];
-  return r;
-}
-
-template <class S, int STRIDE>
-__device__ __forceinline__ void sh_put(uint32_t* sh, int slot, int pt, const Fe<S>& a) {
-#pragma unroll
-  for (int w = 0; w < S::NW; ++w) sh[(slot * S::NW + w) * STRIDE + pt] = a.v[w];
-}
-
-// A product table: 4 bits per product j, slot numbers; NONE marks "no second
-// summand" in a sum table.
-constexpr int NONE = 15;
-__host__ __device__ constexpr uint32_t nibbles(int a0, int a1, int a2, int a3, int a4 = 0,
-                                               int a5 = 0) {
-  return a0 | a1 << 4 | a2 << 8 | a3 << 12 | a4 << 16 | static_cast<uint32_t>(a5) << 20;
-}
-__device__ __forceinline__ int nib(uint32_t t, int j) { return (t >> (4 * j)) & 15; }
-
-// slot t_j + slot u_j (u_j == NONE: slot t_j alone), without a branch;
-// slot t_j alone where no product of the level sums (SUMS false).
-template <class S, int STRIDE, bool SUMS>
-__device__ __forceinline__ Fe<S> sh_operand(const uint32_t* sh, uint32_t t, uint32_t u, int j,
-                                            int pt, const FieldConsts<S>& fc) {
-  if constexpr (!SUMS) return sh_get<S, STRIDE>(sh, nib(t, j), pt);
-  const int k = nib(u, j);
-  const Fe<S> b = sh_get<S, STRIDE>(sh, k == NONE ? 0 : k, pt);
-  return f_add(sh_get<S, STRIDE>(sh, nib(t, j), pt), fe_select(k == NONE, fe_zero<S>(), b), fc);
-}
-
-// One level of NP independent products of a group: product j = (a_j + a'_j)
-// * (b_j + b'_j) into slot out + j, for j = rank, rank + G, ... (one mont_mul
-// call site, so the loop body stays one product's code); then the warp syncs.
-template <class S, int G, int NP, bool SUMS>
-__device__ __forceinline__ void group_products(uint32_t* sh, bool active, int pt, int rank,
-                                               uint32_t a, uint32_t a2, uint32_t b, uint32_t b2,
-                                               int out, const FieldConsts<S>& fc) {
-  constexpr int STRIDE = Group<G>::STRIDE;
-  if (active) {
-#pragma unroll 1
-    for (int j = rank; j < NP; j += G) {
-      const Fe<S> x = sh_operand<S, STRIDE, SUMS>(sh, a, a2, j, pt, fc);
-      const Fe<S> y = sh_operand<S, STRIDE, SUMS>(sh, b, b2, j, pt, fc);
-      sh_put<S, STRIDE>(sh, out + j, pt, mont_mul(x, y, fc));
-    }
-  }
-  __syncwarp();
-}
-
 // RCB Alg. 7 as two levels of six products. Slots: 0-5 the inputs X1 Y1 Z1
 // X2 Y2 Z2; level 1 writes m0-m5 to 6-11:
 //   m0 = X1 X2, m1 = Y1 Y2, m2 = Z1 Z2, m3 = (X1 + Y1)(X2 + Y2),
@@ -320,16 +252,14 @@ __device__ __forceinline__ void group_products(uint32_t* sh, bool active, int pt
 // them, rank j mod G writes g_j):
 //   g0 = t3 = m3 - (m0 + m1), g1 = t4 = m4 - (m1 + m2),
 //   g2 = 3b (m5 - (m0 + m2)), g3 = 3 m0, g4 = z3 = m1 + 3b m2, g5 = m1 - 3b m2;
-// level 2 writes n0-n5 over m0-m5:
-//   n0 = g0 g5, n1 = g1 g2, n2 = g5 g4, n3 = g2 g3, n4 = g4 g1, n5 = g3 g0,
-// and X3 = n0 - n1, Y3 = n2 + n3, Z3 = n4 + n5 (rcb7 above, step for step).
+// then group_rcb7_finish (rcb7 above, step for step).
 template <class S, int G>
-__device__ __forceinline__ void group_rcb7(uint32_t* sh, bool active, int pt, int rank,
-                                           const FieldConsts<S>& fc) {
+__device__ __forceinline__ void group_rcb7_level1(uint32_t* sh, bool active, int pt, int rank,
+                                                  const FieldConsts<S>& fc) {
   constexpr int ST = Group<G>::STRIDE;
-  group_products<S, G, 6, true>(sh, active, pt, rank, nibbles(0, 1, 2, 0, 1, 0),
-                          nibbles(NONE, NONE, NONE, 1, 2, 2), nibbles(3, 4, 5, 3, 4, 3),
-                          nibbles(NONE, NONE, NONE, 4, 5, 5), 6, fc);
+  group_products<S, G, true>(sh, active, pt, rank, 6, nibbles(0, 1, 2, 0, 1, 0),
+                             nibbles(NONE, NONE, NONE, 1, 2, 2), 0, nibbles(3, 4, 5, 3, 4, 3),
+                             nibbles(NONE, NONE, NONE, 4, 5, 5), 0, 6, fc);
   if (active) {
     const auto put = [&](int j, const Fe<S>& g) {
       if (j % G == rank) sh_put<S, ST>(sh, j, pt, g);
@@ -345,9 +275,36 @@ __device__ __forceinline__ void group_rcb7(uint32_t* sh, bool active, int pt, in
     put(5, f_sub(m1, b3m2, fc));
   }
   __syncwarp();
-  group_products<S, G, 6, false>(sh, active, pt, rank, nibbles(0, 1, 5, 2, 4, 3),
-                          nibbles(NONE, NONE, NONE, NONE, NONE, NONE), nibbles(5, 2, 4, 3, 1, 0),
-                          nibbles(NONE, NONE, NONE, NONE, NONE, NONE), 6, fc);
+}
+
+// rcb7's second level and the stores, shared by K3 and K4/K4m: from g0-g5 in
+// slots 0-5, level 2 writes n0-n5 to 6-11:
+//   n0 = g0 g5, n1 = g1 g2, n2 = g5 g4, n3 = g2 g3, n4 = g4 g1, n5 = g3 g0;
+// then the block stores X3 = n0 - n1, Y3 = n2 + n3, Z3 = n4 + n5 to
+// operands out, out + 1, out + 2 of its n points from base, lanes
+// contiguous; where MASKED and keep[q] is false, P1's stored rows (operands
+// 0-2) instead, bit for bit.
+template <class St, int G, bool MASKED>
+__device__ __forceinline__ void group_rcb7_finish(uint32_t* sh, bool active, int pt, int rank,
+                                                  const Operands& ops, int out, int64_t base,
+                                                  int n, const bool* keep,
+                                                  const FieldConsts<typename St::S>& fc) {
+  using S = typename St::S;
+  constexpr int P = Group<G>::POINTS, ST = Group<G>::STRIDE;
+  constexpr uint32_t none = nibbles(NONE, NONE, NONE, NONE, NONE, NONE);
+  group_products<S, G, false>(sh, active, pt, rank, 6, nibbles(0, 1, 5, 2, 4, 3), none, 0,
+                              nibbles(5, 2, 4, 3, 1, 0), none, 0, 6, fc);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * P; i += BLOCK_THREADS) {
+    const int c = i / P, q = i % P;
+    if (q >= n) continue;
+    if (MASKED && !keep[q]) {  // P1's stored rows, bit for bit
+      St::copy(ops, c, out + c, base + q);
+      continue;
+    }
+    const Fe<S> u = sh_get<S, ST>(sh, 6 + 2 * c, q), v = sh_get<S, ST>(sh, 7 + 2 * c, q);
+    St::store(ops, out + c, base + q, fe_select(c == 0, f_sub(u, v, fc), f_add(u, v, fc)));
+  }
 }
 
 // ops: X1 Y1 Z1 X2 Y2 Z2 [mask] X3 Y3 Z3
@@ -357,7 +314,7 @@ proj_add_group_kernel(const __grid_constant__ Operands ops, int64_t W,
                       const __grid_constant__ FieldConsts<typename St::S> fc) {
   using S = typename St::S;
   using Gr = Group<G>;
-  constexpr int out = MASKED ? 7 : 6, P = Gr::POINTS, ST = Gr::STRIDE;
+  constexpr int P = Gr::POINTS, ST = Gr::STRIDE;
   __shared__ uint32_t sh[12 * S::NW * ST];
   __shared__ bool keep[P];
   const int64_t base = static_cast<int64_t>(blockIdx.x) * P;
@@ -370,20 +327,80 @@ proj_add_group_kernel(const __grid_constant__ Operands ops, int64_t W,
     for (int pt = threadIdx.x; pt < n; pt += BLOCK_THREADS) keep[pt] = load_flag(ops, 6, base + pt);
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31, grp = lane / G;
+  const int lane = threadIdx.x & 31, grp = lane / G, rank = lane % G;
   const int pt = (threadIdx.x >> 5) * Gr::PER_WARP + grp;
-  group_rcb7<S, G>(sh, grp < Gr::PER_WARP && pt < n, pt, lane % G, fc);
-  __syncthreads();
-  for (int i = threadIdx.x; i < 3 * P; i += BLOCK_THREADS) {
-    const int c = i / P, q = i % P;
-    if (q >= n) continue;
-    if (MASKED && !keep[q]) {  // P1's stored rows, bit for bit
-      St::copy(ops, c, out + c, base + q);
-      continue;
-    }
-    const Fe<S> u = sh_get<S, ST>(sh, 6 + 2 * c, q), v = sh_get<S, ST>(sh, 7 + 2 * c, q);
-    St::store(ops, out + c, base + q, fe_select(c == 0, f_sub(u, v, fc), f_add(u, v, fc)));
+  const bool active = grp < Gr::PER_WARP && pt < n;
+  group_rcb7_level1<S, G>(sh, active, pt, rank, fc);
+  group_rcb7_finish<St, G, MASKED>(sh, active, pt, rank, ops, MASKED ? 7 : 6, base, n, keep, fc);
+}
+
+// K3 (rcb7 with Z_i = v_i, as aff_pair_add_kernel above) as a level of three
+// products, its glue, and group_rcb7_finish. The block stages Y1, X1 to
+// slots 1, 2 and X2, Y2 to 9, 10, each with its sign and valid flag
+// applied, and the flags in v1, v2; level 1 writes to 6-8
+//   m0 = X1 X2, m1 = Y1 Y2, m2 = (X1 + Y1)(X2 + Y2);
+// the glue writes g0-g5 to 0-5 (the thread of rank j mod G computes g_j; a
+// slot of 0-5 that it overwrites is read by that thread alone, the shared
+// values lie in 6-10):
+//   g0 = t3 = m2 - (m0 + m1), g1 = t4 = sel(v2, Y1) + sel(v1, Y2),
+//   g2 = 3b (sel(v2, X1) + sel(v1, X2)), g3 = 3 m0, g4 = z3 = m1 + t2,
+//   g5 = m1 - t2, where t2 = 3b if v1 v2 else 0.
+// ops: x1 y1 s1 v1 x2 y2 s2 v2 X3 Y3 Z3
+template <class St, int G>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+aff_pair_add_group_kernel(const __grid_constant__ Operands ops, int64_t W,
+                          const __grid_constant__ FieldConsts<typename St::S> fc) {
+  using S = typename St::S;
+  using Gr = Group<G>;
+  constexpr int P = Gr::POINTS, ST = Gr::STRIDE;
+  __shared__ uint32_t sh[12 * S::NW * ST];
+  __shared__ bool v1s[P], v2s[P];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * P;
+  const int n = static_cast<int>(W - base < P ? W - base : P);  // this block's points
+  const Fe<S> zero = fe_zero<S>(), one = fe_from<S>(fc.one);
+  for (int i = threadIdx.x; i < 4 * P; i += BLOCK_THREADS) {
+    const int c = i / P, pt = i % P;  // c: x1 y1 x2 y2
+    if (pt >= n) continue;
+    const int side = 4 * (c >> 1);
+    const bool is_y = c & 1;
+    const bool v = load_flag(ops, side + 3, base + pt), s = load_flag(ops, side + 2, base + pt);
+    const Fe<S> a = St::load(ops, side + is_y, base + pt, fc);
+    // the identity (0 : 1 : 0) on invalid lanes, before any arithmetic
+    sh_put<S, ST>(sh, c == 0 ? 2 : c == 1 ? 1 : 7 + c, pt,
+                  is_y ? fe_select(v, f_cneg(a, s, fc), one) : fe_select(v, a, zero));
   }
+  for (int pt = threadIdx.x; pt < n; pt += BLOCK_THREADS) {
+    v1s[pt] = load_flag(ops, 3, base + pt);
+    v2s[pt] = load_flag(ops, 7, base + pt);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, grp = lane / G, rank = lane % G;
+  const int pt = (threadIdx.x >> 5) * Gr::PER_WARP + grp;
+  const bool active = grp < Gr::PER_WARP && pt < n;
+  group_products<S, G, true>(sh, active, pt, rank, 3, nibbles(2, 1, 2), nibbles(NONE, NONE, 1), 0,
+                             nibbles(9, 10, 9), nibbles(NONE, NONE, 10), 0, 6, fc);
+  if (active) {
+    const bool v1 = v1s[pt], v2 = v2s[pt];
+    const auto get = [&](int slot) { return sh_get<S, ST>(sh, slot, pt); };
+    const Fe<S> t2 = fe_select(v1 && v2, fe_from<S>(fc.curve[0]), zero);  // 3b Z1 Z2
+#pragma unroll 1
+    for (int j = rank; j < 6; j += G) {
+      Fe<S> g;
+      switch (j) {
+        case 0: g = f_sub(get(8), f_add(get(6), get(7), fc), fc); break;
+        case 1: g = f_add(fe_select(v2, get(1), zero), fe_select(v1, get(10), zero), fc); break;
+        case 2:
+          g = mul_b3_lead(f_add(fe_select(v2, get(2), zero), fe_select(v1, get(9), zero), fc), fc);
+          break;
+        case 3: g = f_add(f_add(get(6), get(6), fc), get(6), fc); break;
+        case 4: g = f_add(get(7), t2, fc); break;
+        default: g = f_sub(get(7), t2, fc); break;
+      }
+      sh_put<S, ST>(sh, j, pt, g);
+    }
+  }
+  __syncwarp();
+  group_rcb7_finish<St, G, false>(sh, active, pt, rank, ops, 8, base, n, nullptr, fc);
 }
 
 // RCB Alg. 9, k times, as two levels of four products each. Slots: 0-2 X Y
@@ -416,9 +433,10 @@ proj_double_k_group_kernel(const __grid_constant__ Operands ops, int64_t W, int 
 #pragma unroll 1
   for (int step = 0; step < 2 * k; ++step) {
     const bool lv2 = step & 1;
-    group_products<S, G, 4, false>(sh, active, pt, rank, lv2 ? nibbles(7, 4, 10, 10) : nibbles(1, 1, 2, 0),
-                            none, lv2 ? nibbles(8, 8, 9, 6) : nibbles(1, 2, 2, 1), none,
-                            lv2 ? 11 : 3, fc);
+    group_products<S, G, false>(sh, active, pt, rank, 4,
+                                lv2 ? nibbles(7, 4, 10, 10) : nibbles(1, 1, 2, 0), none, 0,
+                                lv2 ? nibbles(8, 8, 9, 6) : nibbles(1, 2, 2, 1), none, 0,
+                                lv2 ? 11 : 3, fc);
     if (active) {
       const auto put = [&](int slot, int j, const Fe<S>& g) {
         if (j % G == rank) sh_put<S, ST>(sh, slot + j, pt, g);
@@ -496,55 +514,82 @@ proj_add_mixed_kernel(const __grid_constant__ Operands ops, int64_t W,
 // The kernel ids of msm_curve (curves/cuda_curve.py::KERNEL_IDS).
 constexpr int CURVE_K3 = 3, CURVE_K4 = 4, CURVE_K5 = 5, CURVE_K6 = 6, CURVE_K7 = 7;
 
-// G, the threads a point, that K4/K4m (masked) and K5 launch with at width W
-// on field shape S (G = 1: proj_add_kernel, one thread a point). A fixed
-// table: chip_smoke.py times every built instance at the main path's widths,
-// and PERF.md holds the numbers that chose it. Up to ~12k lanes G = 6 is
-// fastest everywhere (2 product levels a lane, the most groups); above,
-// G = 2 (3 products a thread a level: the least glue repeated across a
-// group), except the wide K4 on Pallas's 8 words, where the one-thread
-// kernel fits 3-5 blocks an SM and wins above ~32k lanes (profile_msm's
+// G, the threads a point, that K3, K4/K4m (masked) and K5 launch with at
+// width W on field shape S, on limbs or (rows) a row codec's storage (G =
+// 1: the one-thread aff_pair_add_kernel or proj_add_kernel). A fixed table:
+// chip_smoke.py times every built instance at the main path's widths, and
+// PERF.md holds the numbers that chose it.
+// K3 (timed as it runs in the MSM, after the slot gather: its operands in
+// the L2, its code not; the one-thread kernel, ~6-12k SASS instructions,
+// then takes up to 2.4x its time with warm code at <= ~50k lanes): up to
+// ~6k lanes G = 6 (the most groups); on Pallas's 8 words G = 3 to the
+// residual's 32,768 lanes on limbs (~24k on rows, where the one-thread
+// kernel ties it at 32,768), then the one-thread kernel (it fits 3-5
+// blocks an SM); on 12 words G = 3 to ~12k, G = 2 to ~40k, then G = 3 (3
+// products a level, no thread idle), except BLS12-377's 13 rows above
+// ~650k lanes, where the one-thread kernel is ~4-5 % ahead in the MSM
+// (profile_msm, G = 1 and G = 3 in turns, two calls; on BLS12-381's 13
+// rows G = 3 is 3-5 % ahead). Widths where two instances lie within ~3 %
+// (the spread between calls) take the neighbouring rule's pick.
+// K4: up to ~12k lanes G = 6 is fastest everywhere (2 product levels a
+// lane, the most groups); above, G = 2 (3 products a thread a level: the
+// least glue repeated across a group), except the wide K4 on Pallas's 8
+// words, where the one-thread kernel wins above ~32k lanes (profile_msm's
 // A/B of this bound). G = 3 and 4 won no K4 width; G = 1 lost every K4m
 // width, every K4 width on 12 words and every K5 width; G = 2 lost every K5
 // width to G = 4.
 template <class S>
-int curve_group(int kernel, int64_t W, bool masked) {
+int curve_group(int kernel, int64_t W, bool masked, bool rows) {
+  if (kernel == CURVE_K3) {
+    if (W <= 6144) return 6;
+    if (S::NW == 8) return W <= (rows ? 24576 : 32768) ? 3 : 1;
+    if (W <= 12288) return 3;
+    if (W <= 40960) return 2;
+    return rows && S::ID == Fp32::ID && W > 655360 ? 1 : 3;
+  }
   if (kernel == CURVE_K5) return 4;
   if (kernel != CURVE_K4) return 1;
   if (W <= 12288) return 6;
   return S::NW == 8 && !masked && W > 32768 ? 1 : 2;
 }
 
-// The instances built on shape S, by G: exactly those curve_group picks (the
-// one-thread K4 on 8-word shapes only).
+// The instances built on shape S (on limbs, or rows), by G: exactly those
+// curve_group picks (the one-thread K3 and K4 on 8-word shapes, and K3 on
+// BLS12-377's rows).
+template <class S, bool ROWS>
+using K3Groups = std::conditional_t<
+    S::NW == 8, std::integer_sequence<int, 1, 3, 6>,
+    std::conditional_t<ROWS && S::ID == Fp32::ID, std::integer_sequence<int, 1, 2, 3, 6>,
+                       std::integer_sequence<int, 2, 3, 6>>>;
 template <class S>
 using K4Groups = std::conditional_t<S::NW == 8, std::integer_sequence<int, 1, 2, 6>,
                                     std::integer_sequence<int, 2, 6>>;
 using K4mGroups = std::integer_sequence<int, 2, 6>;
 using K5Groups = std::integer_sequence<int, 4>;
 
-// fn(std::integral_constant<int, G>{}) for the G of the list equal to g;
-// false when the list has none.
-template <int... Gs, class Fn>
-bool with_group(std::integer_sequence<int, Gs...>, int g, Fn fn) {
-  return ((Gs == g && (fn(std::integral_constant<int, Gs>{}), true)) || ...);
-}
-
-// The list's Gs into out[0, cap); returns how many it has.
-template <int... Gs>
-int list_groups(std::integer_sequence<int, Gs...>, int* out, int cap) {
-  constexpr int gs[] = {Gs...};
-  for (int i = 0; i < cap && i < static_cast<int>(sizeof...(Gs)); ++i) out[i] = gs[i];
-  return static_cast<int>(sizeof...(Gs));
-}
-
-// The built instances of kernel (K4 with `masked`, K5) on shape S into
-// out[0, cap); returns how many there are (0 for a kernel with one design).
+// The built instances of kernel (K3, K4 with `masked`, K5) on shape S (on
+// limbs, or rows) into out[0, cap); returns how many there are (0 for a
+// kernel with one design).
 template <class S>
-int built_groups(int kernel, bool masked, int* out, int cap) {
+int built_groups(int kernel, bool masked, bool rows, int* out, int cap) {
+  if (kernel == CURVE_K3) {
+    return rows ? list_groups(K3Groups<S, true>{}, out, cap)
+                : list_groups(K3Groups<S, false>{}, out, cap);
+  }
   if (kernel == CURVE_K5) return list_groups(K5Groups{}, out, cap);
   if (kernel != CURVE_K4) return 0;
   return masked ? list_groups(K4mGroups{}, out, cap) : list_groups(K4Groups<S>{}, out, cap);
+}
+
+template <class St, int G>
+void launch_k3(const uint64_t* ptrs, const int64_t* lds, int64_t W,
+               const FieldConsts<typename St::S>& fc, cudaStream_t s) {
+  const Operands ops = operands_from_host(ptrs, lds, 11);
+  if constexpr (G == 1) {
+    aff_pair_add_kernel<St><<<grid_for(W), BLOCK_THREADS, 0, s>>>(ops, W, fc);
+  } else {
+    aff_pair_add_group_kernel<St, G><<<Group<G>::grid(W), BLOCK_THREADS, 0, s>>>(ops, W, fc);
+  }
 }
 
 template <class St, int G, bool MASKED>
@@ -568,7 +613,7 @@ void launch_k5(int k, const uint64_t* ptrs, const int64_t* lds, int64_t W,
 
 // Launch curve kernel `kernel` on storage St; ptrs/lds hold its operands in
 // the order of its `ops:` line above (K4m: the mask after the 6 inputs); arg
-// is K4's masked flag (K4m when set) or K5's k. K4/K4m and K5 run the
+// is K4's masked flag (K4m when set) or K5's k. K3, K4/K4m and K5 run the
 // instance of curve_group's table, or, where group > 0, the instance with G
 // = group (the smoke's and the card test's comparison of every instance).
 // Refuses field constants that do not fit St's shape, and an instance that
@@ -580,11 +625,14 @@ int launch_curve(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W
   if (!fits<S>(consts)) return static_cast<int>(cudaErrorInvalidValue);
   const auto fc = field_consts_from_host<S>(consts);
   const unsigned grid = grid_for(W);
-  const int g = group > 0 ? group : curve_group<S>(kernel, W, arg != 0);
+  const int g = group > 0 ? group : curve_group<S>(kernel, W, arg != 0, St::ROWS);
   switch (kernel) {
     case CURVE_K3:
-      aff_pair_add_kernel<St><<<grid, BLOCK_THREADS, 0, s>>>(operands_from_host(ptrs, lds, 11), W,
-                                                              fc);
+      if (!with_group(K3Groups<S, St::ROWS>{}, g, [&](auto G) {
+            launch_k3<St, decltype(G)::value>(ptrs, lds, W, fc, s);
+          })) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
       break;
     case CURVE_K4: {
       const auto k4 = [&](auto G, auto masked) {

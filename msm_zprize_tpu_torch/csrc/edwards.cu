@@ -1,5 +1,6 @@
-// K10, K11, K12: twisted-Edwards (a = -1) extended-coordinate formulas, one
-// lane per thread, on (22, W) limb tensors in Montgomery form.
+// K10, K11, K12: twisted-Edwards (a = -1) extended-coordinate formulas on
+// (22, W) limb tensors in Montgomery form: K10 and K11 one lane per thread,
+// K12 G threads a point (the group design).
 //
 // Replace the formula bodies of msm_zprize_tpu/curves/pallas_curve.py's
 // EdwardsKernels (one pallas_call each through _curve_call):
@@ -27,12 +28,19 @@
 // between doublings for the same reason (pallas_curve.py:486-488) but has
 // no check that the relaxed value meets the storage bound.
 //
-// What bounds them on an H100: 32-bit integer multiply-add throughput and
-// register pressure (8 words per value here against 12 for BLS12-377), and
-// at K10's width (942,080 lanes at 2^16) the 8 + 4 + 4 operand rows it
-// moves. The design is the plain one of curve.cu: one thread per lane,
-// 128-thread blocks.
-#include "field.cuh"
+// What bounds them on an H100: K10 and K11 run wide (942,080 and 471,040
+// lanes at 2^16), bound by 32-bit integer multiply-add throughput, register
+// pressure (8 words per value here against 12 for BLS12-377) and the 8 + 4
+// + 4 operand rows K10 moves; they keep the plain design, one thread per
+// lane, 128-thread blocks. K12 runs narrow (23 and 1 lanes on the padded
+// path) and long (k = 5 and 11 doublings), so latency bounds it: one
+// thread a lane waited on hwcd-3's 9 products a doubling one after another
+// (that design went: slower at every width). Its group design (group.cuh:
+// G threads a point) waits on 3 dependent levels a doubling instead (A B
+// TT D, then C, then X Y Z T). Removing the middle level (carrying k T, a
+// 13-bit add chain of ~20 field additions, in the glue) would trade one
+// product for a longer chain, as above.
+#include "group.cuh"
 
 namespace msm {
 namespace ed {
@@ -123,21 +131,70 @@ ed_add_kernel(const __grid_constant__ Operands ops, int64_t W,
   store_out(ops, out + 3, lane, T3);
 }
 
-// ---- K12: k chained unified doublings ---------------------------------------
+// ---- K12: k chained unified doublings, G threads a point (group.cuh) ------
+// hwcd-3 with both operands equal, as three levels of products a doubling.
+// Slots: 0-3 X Y Z T, 8 the constant k R; level 1 writes to 4-7
+//   A = (Y - X)(Y - X), B = (Y + X)(Y + X), TT = T T, D = Z (Z + Z);
+// level 2 writes C = TT (k R) to 9; level 3 writes the next X Y Z T to 0-3:
+//   X = (B - A)(D - C), Y = (D + C)(B + A), Z = (D - C)(D + C), T = (B - A)(B + A),
+// that is E F, G H, F G, E H with E = B - A, F = D - C, G = D + C, H = B + A:
+// hwcd3's values mod p (D = 2 Z Z as one product, each operand's sum or
+// difference formed by the thread that takes the product), every value
+// < 2p, so the chain re-enters with its input bound at every doubling. A
+// level reads no slot that it writes, and the warp syncs between levels.
 // ops: X1 Y1 Z1 T1 X3 Y3 Z3 T3
+template <int G>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-ed_double_k_kernel(const __grid_constant__ Operands ops, int64_t W, int k,
-                   const __grid_constant__ FieldConsts fc) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= W) return;
-  Fe X = load_reduced(ops, 0, lane, fc), Y = load_reduced(ops, 1, lane, fc);
-  Fe Z = load_reduced(ops, 2, lane, fc), T = load_reduced(ops, 3, lane, fc);
-  for (int i = 0; i < k; ++i) hwcd3(X, Y, Z, T, X, Y, Z, T, X, Y, Z, T, fc);
-  store_out(ops, 4, lane, X);
-  store_out(ops, 5, lane, Y);
-  store_out(ops, 6, lane, Z);
-  store_out(ops, 7, lane, T);
+ed_double_k_group_kernel(const __grid_constant__ Operands ops, int64_t W, int k,
+                         const __grid_constant__ FieldConsts fc) {
+  using Gr = Group<G>;
+  constexpr int P = Gr::POINTS, ST = Gr::STRIDE;
+  __shared__ uint32_t sh[10 * S::NW * ST];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * P;
+  const int n = static_cast<int>(W - base < P ? W - base : P);  // this block's points
+  for (int i = threadIdx.x; i < 4 * P; i += BLOCK_THREADS) {
+    const int c = i / P, pt = i % P;
+    if (pt < n) sh_put<S, ST>(sh, c, pt, load_reduced(ops, c, base + pt, fc));
+  }
+  for (int pt = threadIdx.x; pt < n; pt += BLOCK_THREADS) {
+    sh_put<S, ST>(sh, 8, pt, fe_from<S>(fc.curve[0]));
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, grp = lane / G, rank = lane % G;
+  const int pt = (threadIdx.x >> 5) * Gr::PER_WARP + grp;
+  const bool active = grp < Gr::PER_WARP && pt < n;
+  // each level's table: operands (a +- a2)(b +- b2), a difference where
+  // bit j of sa (sb) is set, product j into slot out + j
+  const auto lv = [](int step, uint32_t l1, uint32_t l2, uint32_t l3) {
+    const int l = step % 3;
+    return l == 0 ? l1 : l == 1 ? l2 : l3;
+  };
+  constexpr uint32_t none = nibbles(NONE, NONE, NONE, NONE);
+#pragma unroll 1
+  for (int step = 0; step < 3 * k; ++step) {
+    group_products<S, G, true>(
+        sh, active, pt, rank, lv(step, 4, 1, 4),
+        lv(step, nibbles(1, 1, 3, 2), nibbles(6), nibbles(5, 7, 7, 5)),
+        lv(step, nibbles(0, 0, NONE, NONE), none, nibbles(4, 9, 9, 4)),
+        lv(step, 0b0001, 0, 0b1101),
+        lv(step, nibbles(1, 1, 3, 2), nibbles(8), nibbles(7, 5, 7, 5)),
+        lv(step, nibbles(0, 0, NONE, 2), none, nibbles(9, 4, 9, 4)),
+        lv(step, 0b0001, 0, 0b0001), lv(step, 4, 9, 0), fc);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 4 * P; i += BLOCK_THREADS) {
+    const int c = i / P, q = i % P;
+    if (q < n) store_out(ops, 4 + c, base + q, sh_get<S, ST>(sh, c, q));
+  }
 }
+
+// K12's G, the threads a point: 4, a level of 4 products in one round, at
+// every width. chip_smoke.py times it beside its plain twin at K12's
+// widths on the Edwards paths (23 and 1 lanes); PERF.md keeps the numbers of
+// the instances measured beside it and removed: G = 2 (1.6x behind from 1
+// to 4,096 lanes, ahead only at 65,536, which no path runs) and the
+// one-thread kernel (2x behind).
+constexpr int K12_GROUP = 4;
 
 }  // namespace ed
 }  // namespace msm
@@ -177,7 +234,8 @@ extern "C" int msm_ed_double_k(const uint64_t* ptrs, const int64_t* lds, int64_t
   using namespace msm;
   using namespace msm::ed;
   if (shape != S::ID || !fits<S>(consts)) return static_cast<int>(cudaErrorInvalidValue);
-  ed_double_k_kernel<<<grid_for(W), BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      operands_from_host(ptrs, lds, 8), W, k, field_consts_from_host<S>(consts));
+  ed_double_k_group_kernel<K12_GROUP>
+      <<<Group<K12_GROUP>::grid(W), BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          operands_from_host(ptrs, lds, 8), W, k, field_consts_from_host<S>(consts));
   return static_cast<int>(cudaGetLastError());
 }

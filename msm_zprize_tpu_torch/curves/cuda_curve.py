@@ -58,9 +58,10 @@ K14 = {k: "k14_" + k for k in (K3, K4, K4M, K5, K6, K7)}
 K14_FMA51 = {k: "k14_fma51_" + k for k in (K3, K4, K4M, K5, K6, K7)}
 # the kernel ids of the C entry msm_curve (csrc/curve.cuh::CURVE_K3..K7)
 KERNEL_IDS = {K3: 3, K4: 4, K4M: 4, K5: 5, K6: 6, K7: 7}
-# (counter key, width, K5's k, rows, field, the K4m/K7 flag tensor or None)
-# of every curve launch while this is a list (profile_msm's per-width table
-# sets it to [] and back to None); None: nothing is recorded
+# (key, width, K5's or K12's k, rows, field, the K4m/K7 flag tensor or None)
+# of every curve launch, Weierstrass and Edwards (cuda_edwards logs K10-K12
+# here), while this is a list (profile_msm's per-width table sets it to []
+# and back to None); None: nothing is recorded
 LAUNCH_LOG: list | None = None
 
 
@@ -310,6 +311,14 @@ def _launch(W, name, ins, lds, width, batch, arg=0, group=0):
 def aff_pair_add(W, x1, y1, s1, v1, x2, y2, s2, v2):
     """K3: operand i is ((-1)^s_i * (x_i, y_i)) where v_i != 0, else the
     identity; x_i, y_i raw affine coordinates (< 2p). Returns (X3, Y3, Z3)."""
+    return _aff_pair_add(W, 0, x1, y1, s1, v1, x2, y2, s2, v2)
+
+
+def _aff_pair_add(W, group, x1, y1, s1, v1, x2, y2, s2, v2):
+    """``aff_pair_add`` on the instance with G = ``group`` threads a point
+    (one of ``_groups``; 0: the one the width table picks, as
+    ``aff_pair_add`` does). For comparing the instances on the card; the
+    engines call ``aff_pair_add``."""
     args = (x1, y1, s1, v1, x2, y2, s2, v2)
     if _build.on_cpu(*args):
         return aff_pair_add_plain(W, *args)
@@ -318,7 +327,7 @@ def aff_pair_add(W, x1, y1, s1, v1, x2, y2, s2, v2):
     fl = flag_rows((s1, v1, s2, v2), width)
     ins = (fx1, fy1, fl[0], fl[1], fx2, fy2, fl[2], fl[3])
     lds = [lds[0], lds[1], 0, 0, lds[2], lds[3], 0, 0]
-    return _launch(W, K3, ins, lds, width, batch)
+    return _launch(W, K3, ins, lds, width, batch, group=group)
 
 
 def proj_add(W, X1, Y1, Z1, X2, Y2, Z2, mask=None):
@@ -383,21 +392,23 @@ def _proj_double_k(W, group, X1, Y1, Z1, k: int):
     return _launch(W, K5, ins, lds, width, batch, arg=k, group=group)
 
 
-def _group_for(F, name: str, width: int) -> int:
-    """G, the threads a point, of the instance that kernel ``name`` (K4,
-    K4m, K5) launches with at ``width`` lanes on the field F: the kernels'
-    own table (csrc/curve.cuh::curve_group)."""
+def _group_for(W, name: str, width: int) -> int:
+    """G, the threads a point, of the instance that kernel ``name`` (K3,
+    K4, K4m, K5) launches with at ``width`` lanes on W's field and storage:
+    the kernels' own table (csrc/curve.cuh::curve_group)."""
     lib, _ = _build.library()
-    return lib.msm_curve_group(_build.field_shape(F), KERNEL_IDS[name], width, int(name == K4M))
+    return lib.msm_curve_group(_build.field_shape(W.F), W.storage.codec_arg(W.F),
+                               KERNEL_IDS[name], width, int(name == K4M))
 
 
-def _groups(F, name: str) -> tuple[int, ...]:
-    """The Gs of the instances of kernel ``name`` (K4, K4m, K5) built on the
-    field F, as the kernels' library lists them (csrc/curve.cuh::K4Groups,
-    K4mGroups, K5Groups)."""
+def _groups(W, name: str) -> tuple[int, ...]:
+    """The Gs of the instances of kernel ``name`` (K3, K4, K4m, K5) built on
+    W's field and storage, as the kernels' library lists them
+    (csrc/curve.cuh::K3Groups, K4Groups, K4mGroups, K5Groups)."""
     lib, _ = _build.library()
-    shape, out = _build.field_shape(F), (ctypes.c_int * 8)()
-    count = lib.msm_curve_groups(shape, KERNEL_IDS[name], int(name == K4M), out, 8)
+    shape, out = _build.field_shape(W.F), (ctypes.c_int * 8)()
+    count = lib.msm_curve_groups(shape, W.storage.codec_arg(W.F), KERNEL_IDS[name],
+                                 int(name == K4M), out, 8)
     if not 0 < count <= 8:
         raise RuntimeError(f"{name}: the library lists {count} instances on field shape {shape}")
     return tuple(out[:count])

@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .cuda_curve import field_rows, flag_rows, launch
+from . import cuda_curve
+from .cuda_curve import field_rows, flag_rows
 
 __all__ = [
     "ed_pair_add", "ed_add", "ed_double_k",
@@ -80,6 +81,14 @@ def _words(E):
     return _build.field_words(E.F, (E.k_mont, E.two_mont))
 
 
+def _launch(E, name, entry, ins, lds, width, batch, extra=(), k=0):
+    """Launch ``entry`` and count it under ``name``, logged (with K12's k)
+    where ``cuda_curve.LAUNCH_LOG`` is a list."""
+    if cuda_curve.LAUNCH_LOG is not None and width:
+        cuda_curve.LAUNCH_LOG.append((name, width, k, E.F.n, E.F, None))
+    return cuda_curve.launch(E.F, _words(E), name, entry, ins, lds, width, batch, 4, extra)
+
+
 def ed_pair_add(E, x1, y1, s1, v1, x2, y2, s2, v2):
     """K10: operand i is the affine point ((-1)^s_i x_i, y_i) where v_i != 0,
     else the identity; x_i, y_i raw affine coordinates. Returns (X, Y, Z, T)."""
@@ -90,7 +99,7 @@ def ed_pair_add(E, x1, y1, s1, v1, x2, y2, s2, v2):
     fl = flag_rows((s1, v1, s2, v2), width)
     ins = (fx1, fy1, fl[0], fl[1], fx2, fy2, fl[2], fl[3])
     lds = [lds[0], lds[1], 0, 0, lds[2], lds[3], 0, 0]
-    return launch(E.F, _words(E), K10, "msm_ed_pair_add", ins, lds, width, batch, 4)
+    return _launch(E, K10, "msm_ed_pair_add", ins, lds, width, batch)
 
 
 def ed_add(E, X1, Y1, Z1, T1, X2, Y2, Z2, T2, mask=None):
@@ -104,8 +113,7 @@ def ed_add(E, X1, Y1, Z1, T1, X2, Y2, Z2, T2, mask=None):
     if mask is not None:
         ins = ins + flag_rows((mask,), width)
         lds = lds + [0]
-    return launch(E.F, _words(E), K11, "msm_ed_add", ins, lds, width, batch, 4,
-                  extra=(int(mask is not None),))
+    return _launch(E, K11, "msm_ed_add", ins, lds, width, batch, extra=(int(mask is not None),))
 
 
 def ed_double_k(E, X1, Y1, Z1, T1, k: int):
@@ -116,4 +124,4 @@ def ed_double_k(E, X1, Y1, Z1, T1, k: int):
         return ed_double_k_plain(E, X1, Y1, Z1, T1, k)
     batch = X1.shape[1:]
     ins, lds, width = field_rows(E.F.n, (X1, Y1, Z1, T1), batch)
-    return launch(E.F, _words(E), K12, "msm_ed_double_k", ins, lds, width, batch, 4, extra=(k,))
+    return _launch(E, K12, "msm_ed_double_k", ins, lds, width, batch, extra=(k,), k=k)

@@ -24,11 +24,12 @@ reports them:
 * the serial chains: the device time per launch of K8 (the Fermat
   inverse on one lane) and of the K5 / K12 doubling chains, from the same
   trace;
-* the curve kernels (K3-K7 and their K14 variants) launch by launch: for
-  each kernel and width (and K5's k), the launches per run, their device
-  time and their bound (``testing/bounds.py``: bytes over 3.35 TB/s or
-  multiply-adds over the card's integer rate, whichever is larger), and
-  the sums per run. The widths are those ``cuda_curve.LAUNCH_LOG`` logs
+* the curve kernels (K3-K7, their K14 variants, and the Edwards K10-K12)
+  launch by launch: for each kernel and width (and K5's or K12's k), the
+  launches per run, their device time and their bound
+  (``testing/bounds.py``: bytes over 3.35 TB/s or multiply-adds over the
+  card's integer rate, whichever is larger), and the sums per run. The
+  widths are those ``cuda_curve.LAUNCH_LOG`` logs
   during the profiled runs, matched to the trace's curve kernels in launch
   order.
 
@@ -99,7 +100,8 @@ def _curve_table(head, kernels, launches, runs) -> None:
     """Per curve kernel and width: launches, device time and bound per run,
     from ``cuda_curve.LAUNCH_LOG``'s records matched to the trace's curve
     kernels in launch order."""
-    events = sorted((e for e in kernels if "wei::" in e.name), key=lambda e: e.time_range.start)
+    events = sorted((e for e in kernels if "msm::wei::" in e.name or "msm::ed::" in e.name),
+                    key=lambda e: e.time_range.start)
     if len(events) != len(launches):
         raise AssertionError(f"{head}: {len(events)} curve kernels in the trace against "
                              f"{len(launches)} logged launches")

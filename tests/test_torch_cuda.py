@@ -19,13 +19,17 @@ and K7 bit for bit; the halving layout on int32 CUDA tensors bit-exact
 against the CPU; K13 and the K14 variants of K3-K7 on every codec storage
 (PackedCodec on each curve, Fma51Codec on Pallas; K13 also on both codecs
 of the n = 22 Edwards field) exact mod p with every output below 2p, their
-pass-through lanes bit for bit. K4, K4m and K5 on every storage also run
-each built instance (G threads a point, as the library lists them) at widths
+pass-through lanes bit for bit. K3, K4, K4m and K5 on every storage also
+run each built instance (G threads a point, as the library lists them):
+K3 at W = 1, at a block's points +- 1 and at the main round's 901,120
+lanes, with invalid lanes on either side or both; K4, K4m and K5 at widths
 that cut a group, a warp and a block (1, 5, 33, 4097), on strided operands
-with 2p - 1 and 2p - 2 among them, K5 at k = 1, 5 and 12, and every entry
-of the kernels' width table through the engines' wrappers; an instance
-that is not built (the one-thread K4m everywhere, the one-thread K4 on
-12-word shapes) is refused. An Fp22 and a
+with 2p - 1 and 2p - 2 among them, K5 at k = 1, 5 and 12; and every entry
+of the kernels' width table through the engines' wrappers, the table's
+picks equal to the built lists; an instance that is not built (the
+one-thread K4m everywhere, the one-thread K4 on 12-word shapes) is
+refused. The Edwards K12 (one instance) at W = 1 and 23, k = 1, 5 and 11.
+Every curve kernel's outputs lie below 2p. An Fp22 and a
 Pallas launch on the same limbs take different shape IDs, and the C
 entries refuse a Pallas field under Fp22's.
 """
@@ -89,26 +93,55 @@ def _vals(G, dev, rng, width, edges=(), bound=None):
 
 
 GROUP_WIDTHS = (1, 5, 33, 4097)  # cut a group, a warp, a block of every G
+K3_MAIN = 901_120  # K3's main-round width in the 2^16 MSMs
 
 
-def _group_checks(F, Wc, codec, a, halves, m, label):
-    """Every built instance of K4, K4m and K5 (G threads a point, as
-    ``cuda_curve._groups`` reads them from the library) against the twin at
-    widths that cut a group or a block, on the strided halves too (K4,
-    K4m), K5 at k = 1, 5 and 12, the
-    pass-through lanes of K4m bit for bit; the width table's pick at each
-    width among them, and an instance that is not built refused."""
-    same = ((lambda g, w: torch.equal(F.fully_reduce(g), F.fully_reduce(w))) if codec is None
-            else (lambda g, w: _rows_equal(F, codec, g, w)))
-    built = {name: cuda_curve._groups(F, name) for name in (cuda_curve.K4, cuda_curve.K4M,
-                                                            cuda_curve.K5)}
+def _below_2p(F, g):
+    """Every value of the limb tensor g is below 2p."""
+    return torch.equal(F._sub_const_select(g, F.two_p_limbs), g)
+
+
+def _block_points(G):
+    """Points a 128-thread block of G threads a point holds."""
+    return 128 if G == 1 else 32 // G * 4
+
+
+def _group_checks(F, Wc, codec, a, halves, f, label):
+    """Every built instance of K3, K4, K4m and K5 (G threads a point, as
+    ``cuda_curve._groups`` reads them from the library) against the twin:
+    K3 at W = 1, at one block's points +- 1 of each instance and at the main
+    round's width, its first lanes invalid on either side or both (flags
+    f: s1 v1 s2 v2); K4, K4m and K5 at widths that cut a group or a block,
+    on the strided halves too (K4, K4m), K5 at k = 1, 5 and 12, the
+    pass-through lanes of K4m bit for bit; every output below 2p; the width
+    table's picks equal to the built lists, and an instance that is not
+    built refused."""
+    m = f[0]
+    same = ((lambda g, w: torch.equal(F.fully_reduce(g), F.fully_reduce(w)) and _below_2p(F, g))
+            if codec is None else (lambda g, w: _rows_equal(F, codec, g, w)))
+    built = {name: cuda_curve._groups(Wc, name) for name in (cuda_curve.K3, cuda_curve.K4,
+                                                            cuda_curve.K4M, cuda_curve.K5)}
     reached = set()
+    v1, v2 = f[1].clone(), f[3].clone()
+    v1[:4] = torch.tensor([0, 1, 0, 1], dtype=v1.dtype)
+    v2[:4] = torch.tensor([0, 0, 1, 1], dtype=v2.dtype)
+    k3_ops = (a[0], a[1], f[0], v1, a[2], a[3], f[2], v2)
+    k3_widths = {1, K3_MAIN} | {_block_points(G) + d for G in built[cuda_curve.K3] for d in (-1, 0, 1)}
+    for width in sorted(k3_widths):
+        ops = [_tile(x, width) for x in k3_ops]
+        want = cuda_curve.aff_pair_add_plain(Wc, *ops)
+        reached.add((cuda_curve.K3, cuda_curve._group_for(Wc, cuda_curve.K3, width)))
+        for G in built[cuda_curve.K3]:
+            got = cuda_curve._aff_pair_add(Wc, G, *ops)
+            assert all(map(same, got, want)), (label, "K3", G, width)
     for width in GROUP_WIDTHS:
         ops = [x[:, :width] for x in a]
         strided = [x[:, :width] for x in halves]
         mask = m[:width]
         for name, groups in built.items():
-            pick = cuda_curve._group_for(F, name, width)
+            if name == cuda_curve.K3:
+                continue
+            pick = cuda_curve._group_for(Wc, name, width)
             assert pick in groups, (label, name, width, pick)
             reached.add((name, pick))
             for G in groups:
@@ -127,18 +160,22 @@ def _group_checks(F, Wc, codec, a, halves, m, label):
                         for g, x1 in zip(got, args[:3]):
                             assert torch.equal(g[:, mask == 0], x1[:, mask == 0]), (label, G, width)
     # every entry of the width table, through the engines' wrappers, at the
-    # first width (powers of two and their neighbours up to 2^20) that picks it
+    # first width (powers of two and their neighbours up to 2^20) that picks
+    # it; the table picks every built instance and no other
     first = {}
     for e in range(21):
         for width in (max(1, (1 << e) - 1), 1 << e, (1 << e) + 1):
             for name in built:
-                first.setdefault((name, cuda_curve._group_for(F, name, width)), width)
+                first.setdefault((name, cuda_curve._group_for(Wc, name, width)), width)
+    for name, groups in built.items():
+        assert {G for nm, G in first if nm == name} == set(groups), (label, name, groups)
     for (name, G), width in sorted(first.items()):
         if (name, G) in reached:
             continue
-        assert G in built[name], (label, name, width, G)
-        ops = [_tile(x, width) for x in a]
-        if name == cuda_curve.K5:
+        ops = [_tile(x, width) for x in (k3_ops if name == cuda_curve.K3 else a)]
+        if name == cuda_curve.K3:
+            got, want = cuda_curve.aff_pair_add(Wc, *ops), cuda_curve.aff_pair_add_plain(Wc, *ops)
+        elif name == cuda_curve.K5:
             got = cuda_curve.proj_double_k(Wc, *ops[:3], 5)
             want = cuda_curve.proj_double_k_plain(Wc, *ops[:3], 5)
         else:
@@ -153,6 +190,9 @@ def _group_checks(F, Wc, codec, a, halves, m, label):
             cuda_curve._proj_add(Wc, G, *a, **kw)
     with pytest.raises(RuntimeError):
         cuda_curve._proj_double_k(Wc, 1, *a[:3], 2)
+    for G in {1, 2, 3, 6, 7} - set(built[cuda_curve.K3]):
+        with pytest.raises(RuntimeError):
+            cuda_curve._aff_pair_add(Wc, G, *k3_ops)
 
 
 def _tile(x, width):
@@ -222,7 +262,7 @@ def _weierstrass_checks(dev, rng, params):
         for name, keep, p1 in (("K4m strided", m == 0, halves[:3]), ("K7", inf == 1, a[:3])):
             for g, x1 in zip(pairs[name][0], p1):
                 assert torch.equal(g[:, keep], x1[:, keep]), (params.label, name)
-        _group_checks(F, Wc, codec, a, halves, m, params.label)
+        _group_checks(F, Wc, codec, a, halves, f, params.label)
         if codec is not None:  # K13: beta * x of the codec mode, counted under its codec's key
             key = cuda_codec.K13_FMA51 if isinstance(codec, Fma51Codec) else cuda_codec.K13
             before = COUNTS[key]
@@ -323,6 +363,15 @@ def test_kernels_match_plain_twins(dev):
     for name, (got, want) in pairs.items():
         for g, w in zip(got, want):
             assert torch.equal(FE.fully_reduce(g), FE.fully_reduce(w)), name
+    # K12 (G = 4 threads a point) at its MSM widths and k's, every output
+    # below 2p
+    for width in (1, 23):
+        ops = [x[:, :width] for x in a[:4]]
+        for k in (1, 5, 11):
+            got = cuda_edwards.ed_double_k(E, *ops, k)
+            want = cuda_edwards.ed_double_k_plain(E, *ops, k)
+            assert all(torch.equal(FE.fully_reduce(g), FE.fully_reduce(w)) and _below_2p(FE, g)
+                       for g, w in zip(got, want)), ("K12", width, k)
 
     pts, logs = ed_points_with_logs(ED_ON_BLS12_377, N, seed=13)
     scalars = ed.random_scalars(N, seed=13, device=dev)
