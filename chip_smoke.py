@@ -16,20 +16,25 @@ non-zero and no result line is printed):
    local loads/stores from ``cuobjdump -sass``);
 2. every kernel of every path against its plain PyTorch twin on the card,
    at the shapes the 2^16 MSMs give it (K2 and K9 bit-exact, the others
-   exact mod p, the pass-through lanes of K4m and K7 bit for bit), with the
-   card's own time per call (CUDA-graph replay, so no host enqueue time),
-   the twin's CUDA-event time, and the bound: the least time the card could
-   take for the same work. K3, K4, K4m and K5 run every built
-   instance (G threads a point, as the kernels' library lists them), each
-   against the twin and timed twice in turns: K3 on every storage at the
-   main round's and the residual's widths, its code flushed from the L2
-   before each call (as in the MSM, where it follows the slot gather); K4
-   over the main path's widths on limbs (450,560 down to 1 at 2^16); the
-   row's time is the instance the kernels' width table picks. The other
-   timed calls replay one input set, which stays in the 50 MB L2 below
-   ~45k lanes; per-MSM sums come from ``profile_msm``. K5's and K12's
-   lines also give their latency floors: dependent product levels times
-   one product's latency (K8's time over its products);
+   exact mod p, the pass-through lanes of K4m, K7 and the masked K11 bit
+   for bit), with the card's own time per call (CUDA-graph replay, so no
+   host enqueue time), the twin's CUDA-event time, and the bound: the
+   least time the card could take for the same work. K3, K4, K4m, K5 and
+   K7 run every built instance (G threads a point, as the kernels' library
+   lists them), each against the twin and timed twice in turns: K3 on
+   every storage at the main round's and the residual's widths, its code
+   flushed from the L2 before each call (as in the MSM, where it follows
+   the slot gather); K4 over the main path's widths on limbs (450,560 down
+   to 1 at 2^16); K7 on every storage at the affine reduction's and
+   ``random_points_fast``'s widths; the row's time is the instance the
+   kernels' width table picks. K11 (one instance) runs at one block's
+   points +- 1 and, timed, at the Edwards padded path's distinct widths,
+   from 16,384 lanes up with its code flushed from the L2; masked (on no
+   MSM path) at the widest and at W = 1. The other timed calls replay one
+   input set, which stays in the 50 MB L2 below ~45k lanes; per-MSM sums
+   come from ``profile_msm``. K5's, K11's (at W = 1) and K12's lines also
+   give their latency floors: dependent product levels times one
+   product's latency (K8's time over its products);
 3. BLS12-377: the MSM at N = 8 and its edge cases against two host oracles
    (double-and-add per point, and the known discrete logs);
 4. BLS12-377: the 2^16 MSM against its known-discrete-log result, with the
@@ -474,19 +479,20 @@ def main() -> None:
                 _graph_ms(torch, lambda: cuda_curve.proj_double(Wc, *a6)),
                 _cuda_ms(torch, lambda: cuda_curve.proj_double_plain(Wc, *a6), PLAIN_REPS),
                 f"W={SAMPLE}, {nr} rows", 6 * nr * 4 * SAMPLE, 8 * mm * SAMPLE)
-            # the affine reduction's width and random_points_fast's
+            # K7, every instance: the affine reduction's width and
+            # random_points_fast's
             for width in ((wr, N) if codec is None else (SMALL,)):
                 a7 = [elem(width) for _ in range(5)]
                 i7 = flags(width)
-                got, want = (cuda_curve.proj_add_mixed(Wc, *a7, i7),
-                             cuda_curve.proj_add_mixed_plain(Wc, *a7, i7))
                 on = i7 == 1  # lanes with an infinite affine operand are P1
-                row("K7", "proj_add_mixed", 397, side["affine"],
-                    max(err(got, want), raw_err([g[:, on] for g in got], [a[:, on] for a in a7[:3]])),
-                    _graph_ms(torch, lambda: cuda_curve.proj_add_mixed(Wc, *a7, i7)),
-                    _cuda_ms(torch, lambda: cuda_curve.proj_add_mixed_plain(Wc, *a7, i7), PLAIN_REPS),
+                row("K7", "proj_add_mixed", 397, side["affine"], *wei_instances(
+                    Wc, cuda_curve.K7, f"W={width}, {nr} rows", a7,
+                    lambda got, want: max(err(got, want),
+                                          raw_err([g[:, on] for g in got], [a[:, on] for a in a7[:3]])),
+                    lambda G, a: cuda_curve._proj_add_mixed(Wc, G, *a, i7),
+                    lambda a: cuda_curve.proj_add_mixed_plain(Wc, *a, i7)),
                     f"W={width}, {nr} rows", (8 * nr + 1) * 4 * width, 11 * mm * int((~on).sum().item()))
-            del a7, got, want
+            del a7
 
     curve = Weierstrass.create(BLS12_377)
     W, F = curve.ops, curve.ops.F
@@ -550,17 +556,49 @@ def main() -> None:
                f"W={lanes1e}", (8 * n22 + 4) * 4 * lanes1e, 10 * mm8 * lanes1e)
     del a10
 
-    for width, masked in ((lanes1e // 2, False), (lanes1e // 2, True), (1, False)):
-        a11 = [field_elems(FE, width) for _ in range(8)]
-        mask = {"mask": flags(width)} if masked else {}
-        kernel_row("k11", "ed_add", "K11", "edwards.cu",
-                   "msm_zprize_tpu/curves/pallas_curve.py:500", ed_run, cuda_edwards.K11,
-                   mod_p_err(FE, cuda_edwards.ed_add(E, *a11, **mask),
-                             cuda_edwards.ed_add_plain(E, *a11, **mask)),
-                   _graph_ms(torch, lambda: cuda_edwards.ed_add(E, *a11, **mask)),
-                   _cuda_ms(torch, lambda: cuda_edwards.ed_add_plain(E, *a11, **mask), PLAIN_REPS),
-                   f"W={width}{', masked' if masked else ''}",
-                   (12 * n22 + masked) * 4 * width, 9 * mm8 * width)
+    # K11 (G = 4 threads a point) against the twin, unmasked and masked: at
+    # one block's points +- 1 (32 points a block), untimed; then timed at the
+    # padded path's distinct widths (the tree's widest, the fold, the
+    # sub-rounds, reduce_buckets_log's narrowest, Horner), from 16,384 lanes
+    # up with its code flushed from the L2 (as in the MSM, where those
+    # launches follow the slot gathers), W = 1 beside its latency floor (3
+    # dependent product levels). The masked K11 (counter K11M) is on no MSM
+    # path: timed at the widest width and at W = 1.
+    def k11_err(got, want, a, mask):
+        """curve_err, and the masked-off lanes P1's limbs bit for bit."""
+        worst = curve_err(FE, got, want)
+        if mask:
+            off = mask["mask"] == 0
+            worst = max(worst, raw_err([g[:, off] for g in got], [x[:, off] for x in a[:4]]))
+        return worst
+
+    for masked in (False, True):
+        for width in (31, 32, 33):
+            a11 = [field_elems(FE, width) for _ in range(8)]
+            mask = {"mask": flags(width)} if masked else {}
+            if k11_err(cuda_edwards.ed_add(E, *a11, **mask), cuda_edwards.ed_add_plain(E, *a11, **mask),
+                       a11, mask) != 0:
+                raise AssertionError(f"K11 W={width} masked={masked} disagrees with its twin")
+    print("[2] K11, unmasked and masked: equal to its twin at one block's points +- 1")
+    for masked, widths in ((False, (lanes1e // 2, 2 * Ke * Le, Ke * Le, Ke, 1)),
+                           (True, (lanes1e // 2, 1))):
+        for width in widths:
+            a11 = [field_elems(FE, width) for _ in range(8)]
+            mask = {"mask": flags(width)} if masked else {}
+            run11 = lambda: cuda_edwards.ed_add(E, *a11, **mask)
+            ms11 = _cold_ms(torch, run11, a11) if width >= 16384 else _graph_ms(torch, run11)
+            if width == 1 and not masked:
+                print(f"[2] K11 W=1: {ms11:.4f} ms; latency floor 3 product levels x "
+                      f"{ed_product_ms * 1e3:.3f} us = {3 * ed_product_ms:.4f} ms")
+            kernel_row("k11m" if masked else "k11", "ed_add_masked" if masked else "ed_add", "K11",
+                       "edwards.cu", "msm_zprize_tpu/curves/pallas_curve.py:500", ed_run,
+                       cuda_edwards.K11M if masked else cuda_edwards.K11,
+                       k11_err(run11(), cuda_edwards.ed_add_plain(E, *a11, **mask), a11, mask), ms11,
+                       _cuda_ms(torch, lambda: cuda_edwards.ed_add_plain(E, *a11, **mask), PLAIN_REPS),
+                       f"W={width}{', masked' if masked else ''}"
+                       f"{' (code flushed from the L2)' if width >= 16384 else ''}",
+                       (12 * n22 + masked) * 4 * width,
+                       9 * mm8 * (int(mask["mask"].sum().item()) if masked else width))
     del a11
 
     # K12 (G = 4 threads a point) against the twin, with its latency floor:
@@ -912,11 +950,11 @@ def main() -> None:
     # ---- the kernel table --------------------------------------------------------------
     # each row's launches: its counter in the run it names; 0 only where the
     # row is on no path of that run (the K14 variants of K4m, K6 and K7 in a
-    # codec mode, K13 on the Edwards field's Fma51Codec rows)
+    # codec mode, K13 on the Edwards field's Fma51Codec rows, the masked K11)
     for row in table:
         row["launches"] = run_counts[row["run"]].get(row["counter"], 0)
     unlaunched = sorted({row["key"] for row in table if row["launches"] == 0} - {
-        row["key"] for row in table if row["id"] in ("K14-K4m", "K14-K6", "K14-K7")} - {"k13_fma51"})
+        row["key"] for row in table if row["id"] in ("K14-K4m", "K14-K6", "K14-K7")} - {"k13_fma51", "k11m"})
     if unlaunched:
         raise AssertionError(f"kernels no run of their path launched: {unlaunched}")
 

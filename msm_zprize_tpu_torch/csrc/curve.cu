@@ -42,7 +42,7 @@ int with_curve_unit(int shape, int codec, Fn fn) {
 // 12-bit limbs, else a codec.cuh codec id). ptrs/lds: the kernel's operands
 // in its order (curve.cuh), then its outputs; arg: K4's masked flag, K5's k;
 // group: 0 for the instance curve_group's table picks at this width, else
-// the G of a built K4/K5 instance. Refuses a (shape, codec) pair no unit
+// the G of a built K3, K4, K5 or K7 instance. Refuses a (shape, codec) pair no unit
 // builds, an instance not built, and field constants that do not fit the
 // shape.
 extern "C" int msm_curve(const uint64_t* ptrs, const int64_t* lds, int64_t W, int shape,
@@ -66,7 +66,7 @@ extern "C" int msm_curve_group(int shape, int codec, int kernel, int64_t W, int 
   });
 }
 
-// The Gs of the instances of kernel `kernel` (K3, K4 with `masked`, or K5)
+// The Gs of the instances of kernel `kernel` (K3, K4 with `masked`, K5, K7)
 // built on the storage (shape, codec), into out[0, cap): the ones msm_curve
 // takes as its group; returns how many there are, -1 for a storage no unit
 // builds.

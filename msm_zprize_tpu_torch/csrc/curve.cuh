@@ -1,7 +1,7 @@
 // K3, K4, K4m, K5, K6, K7: complete short-Weierstrass (a = 0) point
-// formulas on Montgomery-form coordinates, one thread a lane (K3 and K4
-// also, K4m and K5 only, with G threads a lane: the group design), and
-// their launcher. Each kernel is a template on its storage policy St (codec.cuh),
+// formulas on Montgomery-form coordinates, one thread a lane (K6; K3, K4
+// and K7 also, K4m and K5 only, with G threads a lane: the group design),
+// and their launcher. Each kernel is a template on its storage policy St (codec.cuh),
 // which names the field shape St::S: LimbStore<S> reads and writes (NL, W)
 // 12-bit limb tensors (K3-K7), RowStore<S, C> (C::ROWS, W) row-codec
 // tensors (K14, the same formulas on PackedCodec or Fma51Codec storage).
@@ -50,14 +50,14 @@
 //
 // Pass-through lanes (K4m with mask == 0, K7 with inf2 set) copy P1's
 // stored rows (limbs, or codec rows) unchanged, bit for bit, in place of
-// the formula's result (K7 skips the formula there; a K4m group computes it
-// with its warp and stores the copy): the engines select
+// the formula's result (the one-thread K7 skips the formula there; a K4m or
+// K7 group computes it with its warp and stores the copy): the engines select
 // on those lanes again, and a redundant representative would still be
 // equal mod p but not the rows the caller gave. The group kernels take the
 // same bounds: every product and add on any thread of a group takes and
 // returns values < 2p.
 //
-// What bounds them on an H100. One thread a point (K6, K7, and K3 and K4
+// What bounds them on an H100. One thread a point (K6, and K3, K4 and K7
 // at G = 1): about ten live 384-bit values and the CIOS accumulator take
 // 152-246 registers a thread, so an SM holds 2-3 blocks of 128 threads, and
 // the formula's 8-12 products are inlined one after another, 10-16k SASS
@@ -66,16 +66,18 @@
 // one-lane chain takes ~2.8x its products' latency a product (the code
 // does not stay in the instruction cache).
 //
-// K3, K4, K4m and K5 also run as the group design (below, group.cuh): G
-// threads a point, splitting each level of the formula's independent
+// K3, K4, K4m, K5 and K7 also run as the group design (below, group.cuh):
+// G threads a point, splitting each level of the formula's independent
 // products (rcb7: two levels of six; K3's rcb7 with unit Z: a level of
-// three, then rcb7's second level; rcb9: two levels of four a doubling)
-// among the group, exchanging values through shared memory. It replaces,
-// for K3, pallas_curve.py:345-372 (_aff_pair_add_body, rcb7_unitz at
-// :589-641), for K4/K4m :272-289 (_proj_add_body, rcb7 at :515) and, for
-// K5, :302-324 (_proj_double_k_body, k x rcb9 at :566). A one-lane chain
-// then waits on 2 dependent products a level instead of 8 or 12, each level
-// calls mont_mul from one loop (1.6-5.3k SASS instructions a kernel),
+// three, then rcb7's second level; rcb8: a level of five, then rcb7's
+// second level; rcb9: two levels of four a doubling) among the group,
+// exchanging values through shared memory. It replaces, for K3,
+// pallas_curve.py:345-372 (_aff_pair_add_body, rcb7_unitz at :589-641), for
+// K4/K4m :272-289 (_proj_add_body, rcb7 at :515), for K5 :302-324
+// (_proj_double_k_body, k x rcb9 at :566) and, for K7, :330-343 and
+// :397-403 (_proj_add_mixed_body, rcb8 at :542-564). A one-lane chain then
+// waits on 2 dependent products a level instead of 8 or 12, each level
+// calls mont_mul from one loop (1.6-5.5k SASS instructions a kernel),
 // 40-128 registers fit 4-5 blocks an SM on 12 words, and the loads and
 // stores are the block's, lanes contiguous. What bounds the wide levels now
 // is instruction issue: ~1,100 SASS instructions a 12-word product against
@@ -486,6 +488,65 @@ proj_double_kernel(const __grid_constant__ Operands ops, int64_t W,
 }
 
 // ---- K7: projective + affine (mixed) add ----------------------------------------
+// K7 (rcb8 above) as a level of five products, its glue, and
+// group_rcb7_finish (rcb8's second level is rcb7's, step for step). The
+// block stages x2, Y1, X1, y2 to slots 0-3 and Z1 to 11, and keep = !inf2;
+// level 1 writes to 6-10
+//   m0 = X1 x2, m1 = Y1 y2, m2 = (X1 + Y1)(x2 + y2), m3 = y2 Z1, m4 = x2 Z1;
+// the glue writes g0-g5 to 0-5 (the thread of rank j mod G computes g_j;
+// Y1 in slot 1 and X1 in slot 2 are read only by the thread that overwrites
+// them, x2 and y2 by no glue, Z1 and the m's lie in 6-11):
+//   g0 = t3 = m2 - (m0 + m1), g1 = t4 = m3 + Y1, g2 = 3b (m4 + X1),
+//   g3 = 3 m0, g4 = z3 = m1 + 3b Z1, g5 = m1 - 3b Z1;
+// where inf2 is set the finish stores P1's rows bit for bit.
+// ops: X1 Y1 Z1 x2 y2 inf2 X3 Y3 Z3
+template <class St, int G>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+proj_add_mixed_group_kernel(const __grid_constant__ Operands ops, int64_t W,
+                            const __grid_constant__ FieldConsts<typename St::S> fc) {
+  using S = typename St::S;
+  using Gr = Group<G>;
+  constexpr int P = Gr::POINTS, ST = Gr::STRIDE;
+  __shared__ uint32_t sh[12 * S::NW * ST];
+  __shared__ bool keep[P];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * P;
+  const int n = static_cast<int>(W - base < P ? W - base : P);  // this block's points
+  for (int i = threadIdx.x; i < 5 * P; i += BLOCK_THREADS) {
+    const int c = i / P, pt = i % P;  // c: X1 Y1 Z1 x2 y2
+    if (pt < n) {
+      sh_put<S, ST>(sh, c == 0 ? 2 : c == 1 ? 1 : c == 2 ? 11 : c == 3 ? 0 : 3, pt,
+                    St::load(ops, c, base + pt, fc));
+    }
+  }
+  for (int pt = threadIdx.x; pt < n; pt += BLOCK_THREADS) keep[pt] = !load_flag(ops, 5, base + pt);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, grp = lane / G, rank = lane % G;
+  const int pt = (threadIdx.x >> 5) * Gr::PER_WARP + grp;
+  const bool active = grp < Gr::PER_WARP && pt < n;
+  group_products<S, G, true>(sh, active, pt, rank, 5, nibbles(2, 1, 2, 3, 0),
+                             nibbles(NONE, NONE, 1, NONE, NONE), 0, nibbles(0, 3, 0, 11, 11),
+                             nibbles(NONE, NONE, 3, NONE, NONE), 0, 6, fc);
+  if (active) {
+    const auto get = [&](int slot) { return sh_get<S, ST>(sh, slot, pt); };
+#pragma unroll 1
+    for (int j = rank; j < 6; j += G) {
+      Fe<S> g;
+      switch (j) {
+        case 0: g = f_sub(get(8), f_add(get(6), get(7), fc), fc); break;
+        case 1: g = f_add(get(9), get(1), fc); break;
+        case 2: g = mul_b3_lead(f_add(get(10), get(2), fc), fc); break;
+        case 3: g = f_add(f_add(get(6), get(6), fc), get(6), fc); break;
+        case 4: g = f_add(get(7), mul_b3_lead(get(11), fc), fc); break;
+        default: g = f_sub(get(7), mul_b3_lead(get(11), fc), fc); break;
+      }
+      sh_put<S, ST>(sh, j, pt, g);
+    }
+  }
+  __syncwarp();
+  group_rcb7_finish<St, G, true>(sh, active, pt, rank, ops, 6, base, n, keep, fc);
+}
+
+// One thread a point (G = 1), built only where curve_group picks it.
 // ops: X1 Y1 Z1 x2 y2 inf2 X3 Y3 Z3
 template <class St>
 __global__ void __launch_bounds__(BLOCK_THREADS)
@@ -514,9 +575,10 @@ proj_add_mixed_kernel(const __grid_constant__ Operands ops, int64_t W,
 // The kernel ids of msm_curve (curves/cuda_curve.py::KERNEL_IDS).
 constexpr int CURVE_K3 = 3, CURVE_K4 = 4, CURVE_K5 = 5, CURVE_K6 = 6, CURVE_K7 = 7;
 
-// G, the threads a point, that K3, K4/K4m (masked) and K5 launch with at
-// width W on field shape S, on limbs or (rows) a row codec's storage (G =
-// 1: the one-thread aff_pair_add_kernel or proj_add_kernel). A fixed table:
+// G, the threads a point, that K3, K4/K4m (masked), K5 and K7 launch with
+// at width W on field shape S, on limbs or (rows) a row codec's storage (G =
+// 1: the one-thread aff_pair_add_kernel, proj_add_kernel or
+// proj_add_mixed_kernel). A fixed table:
 // chip_smoke.py times every built instance at the main path's widths, and
 // PERF.md holds the numbers that chose it.
 // K3 (timed as it runs in the MSM, after the slot gather: its operands in
@@ -538,6 +600,12 @@ constexpr int CURVE_K3 = 3, CURVE_K4 = 4, CURVE_K5 = 5, CURVE_K6 = 6, CURVE_K7 =
 // A/B of this bound). G = 3 and 4 won no K4 width; G = 1 lost every K4m
 // width, every K4 width on 12 words and every K5 width; G = 2 lost every K5
 // width to G = 4.
+// K7 (the affine reduction's 704 lanes, random_points_fast's 65,536, 4,096
+// on rows): G = 6 at 704 and 4,096 lanes on every storage (1.4-4.2x the
+// one-thread kernel); at 65,536 G = 2 on 12 words (6-12 % ahead of G = 6,
+// 1.9x of the one-thread kernel), the one-thread kernel on Pallas's 8
+// words (G = 2 22 % behind); the step at 12,288 is K4's, as no K7 path runs
+// between. G = 3 won no K7 width.
 template <class S>
 int curve_group(int kernel, int64_t W, bool masked, bool rows) {
   if (kernel == CURVE_K3) {
@@ -548,14 +616,15 @@ int curve_group(int kernel, int64_t W, bool masked, bool rows) {
     return rows && S::ID == Fp32::ID && W > 655360 ? 1 : 3;
   }
   if (kernel == CURVE_K5) return 4;
+  if (kernel == CURVE_K7) return W <= 12288 ? 6 : S::NW == 8 ? 1 : 2;
   if (kernel != CURVE_K4) return 1;
   if (W <= 12288) return 6;
   return S::NW == 8 && !masked && W > 32768 ? 1 : 2;
 }
 
 // The instances built on shape S (on limbs, or rows), by G: exactly those
-// curve_group picks (the one-thread K3 and K4 on 8-word shapes, and K3 on
-// BLS12-377's rows).
+// curve_group picks (the one-thread K3, K4 and K7 on 8-word shapes, and K3
+// on BLS12-377's rows).
 template <class S, bool ROWS>
 using K3Groups = std::conditional_t<
     S::NW == 8, std::integer_sequence<int, 1, 3, 6>,
@@ -566,9 +635,12 @@ using K4Groups = std::conditional_t<S::NW == 8, std::integer_sequence<int, 1, 2,
                                     std::integer_sequence<int, 2, 6>>;
 using K4mGroups = std::integer_sequence<int, 2, 6>;
 using K5Groups = std::integer_sequence<int, 4>;
+template <class S>
+using K7Groups = std::conditional_t<S::NW == 8, std::integer_sequence<int, 1, 6>,
+                                    std::integer_sequence<int, 2, 6>>;
 
-// The built instances of kernel (K3, K4 with `masked`, K5) on shape S (on
-// limbs, or rows) into out[0, cap); returns how many there are (0 for a
+// The built instances of kernel (K3, K4 with `masked`, K5, K7) on shape S
+// (on limbs, or rows) into out[0, cap); returns how many there are (0 for a
 // kernel with one design).
 template <class S>
 int built_groups(int kernel, bool masked, bool rows, int* out, int cap) {
@@ -577,6 +649,7 @@ int built_groups(int kernel, bool masked, bool rows, int* out, int cap) {
                 : list_groups(K3Groups<S, false>{}, out, cap);
   }
   if (kernel == CURVE_K5) return list_groups(K5Groups{}, out, cap);
+  if (kernel == CURVE_K7) return list_groups(K7Groups<S>{}, out, cap);
   if (kernel != CURVE_K4) return 0;
   return masked ? list_groups(K4mGroups{}, out, cap) : list_groups(K4Groups<S>{}, out, cap);
 }
@@ -605,6 +678,17 @@ void launch_k4(const uint64_t* ptrs, const int64_t* lds, int64_t W,
 }
 
 template <class St, int G>
+void launch_k7(const uint64_t* ptrs, const int64_t* lds, int64_t W,
+               const FieldConsts<typename St::S>& fc, cudaStream_t s) {
+  const Operands ops = operands_from_host(ptrs, lds, 9);
+  if constexpr (G == 1) {
+    proj_add_mixed_kernel<St><<<grid_for(W), BLOCK_THREADS, 0, s>>>(ops, W, fc);
+  } else {
+    proj_add_mixed_group_kernel<St, G><<<Group<G>::grid(W), BLOCK_THREADS, 0, s>>>(ops, W, fc);
+  }
+}
+
+template <class St, int G>
 void launch_k5(int k, const uint64_t* ptrs, const int64_t* lds, int64_t W,
                const FieldConsts<typename St::S>& fc, cudaStream_t s) {
   proj_double_k_group_kernel<St, G><<<Group<G>::grid(W), BLOCK_THREADS, 0, s>>>(
@@ -613,8 +697,8 @@ void launch_k5(int k, const uint64_t* ptrs, const int64_t* lds, int64_t W,
 
 // Launch curve kernel `kernel` on storage St; ptrs/lds hold its operands in
 // the order of its `ops:` line above (K4m: the mask after the 6 inputs); arg
-// is K4's masked flag (K4m when set) or K5's k. K3, K4/K4m and K5 run the
-// instance of curve_group's table, or, where group > 0, the instance with G
+// is K4's masked flag (K4m when set) or K5's k. K3, K4/K4m, K5 and K7 run
+// the instance of curve_group's table, or, where group > 0, the instance with G
 // = group (the smoke's and the card test's comparison of every instance).
 // Refuses field constants that do not fit St's shape, and an instance that
 // is not built.
@@ -656,8 +740,11 @@ int launch_curve(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W
                                                              fc);
       break;
     case CURVE_K7:
-      proj_add_mixed_kernel<St><<<grid, BLOCK_THREADS, 0, s>>>(operands_from_host(ptrs, lds, 9), W,
-                                                                fc);
+      if (!with_group(K7Groups<S>{}, g, [&](auto G) {
+            launch_k7<St, decltype(G)::value>(ptrs, lds, W, fc, s);
+          })) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

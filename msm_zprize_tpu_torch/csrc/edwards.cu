@@ -1,6 +1,6 @@
 // K10, K11, K12: twisted-Edwards (a = -1) extended-coordinate formulas on
-// (22, W) limb tensors in Montgomery form: K10 and K11 one lane per thread,
-// K12 G threads a point (the group design).
+// (22, W) limb tensors in Montgomery form: K10 one lane per thread, K11 and
+// K12 G = 4 threads a point (the group design).
 //
 // Replace the formula bodies of msm_zprize_tpu/curves/pallas_curve.py's
 // EdwardsKernels (one pallas_call each through _curve_call):
@@ -28,18 +28,24 @@
 // between doublings for the same reason (pallas_curve.py:486-488) but has
 // no check that the relaxed value meets the storage bound.
 //
-// What bounds them on an H100: K10 and K11 run wide (942,080 and 471,040
-// lanes at 2^16), bound by 32-bit integer multiply-add throughput, register
-// pressure (8 words per value here against 12 for BLS12-377) and the 8 + 4
-// + 4 operand rows K10 moves; they keep the plain design, one thread per
-// lane, 128-thread blocks. K12 runs narrow (23 and 1 lanes on the padded
-// path) and long (k = 5 and 11 doublings), so latency bounds it: one
-// thread a lane waited on hwcd-3's 9 products a doubling one after another
-// (that design went: slower at every width). Its group design (group.cuh:
-// G threads a point) waits on 3 dependent levels a doubling instead (A B
-// TT D, then C, then X Y Z T). Removing the middle level (carrying k T, a
-// 13-bit add chain of ~20 field additions, in the glue) would trade one
-// product for a longer chain, as above.
+// What bounds them on an H100: K10 runs wide (942,080 lanes at 2^16), bound
+// by 32-bit integer multiply-add throughput, register pressure and the 8 +
+// 4 + 4 operand rows it moves; it keeps the plain design, one thread per
+// lane, 128-thread blocks. K11 runs from 765,463 lanes down to 1 (the tree,
+// the sub-rounds' 23,552 lanes 19 times, reduce_buckets_log down to 23, 22
+// Horner adds on one lane). One thread a lane (126 registers, 6.5k SASS
+// instructions) walked hwcd-3's 9 products one after another, ~9 us a
+// launch at every width up to ~12k lanes; the group design waits on 3
+// dependent levels instead (A B TT D, then C, then X Y Z T: K12's levels on
+// two points), 2.4k instructions and 39 registers at G = 4, ~5.3 us at
+// narrow widths; wide, both sit at ~1.5x their byte bound (K11_GROUP
+// below). K12 runs narrow (23 and 1 lanes on the padded path) and long (k
+// = 5 and 11 doublings), so latency bounds it: one thread a lane waited on
+// hwcd-3's 9 products a doubling one after another (that design went:
+// slower at every width). Its group design waits on 3 dependent levels a
+// doubling (K11's levels on one point). Removing the middle level
+// (carrying k T, a 13-bit add chain of ~20 field additions, in the glue)
+// would trade one product for a longer chain, as above.
 #include "group.cuh"
 
 namespace msm {
@@ -62,16 +68,6 @@ __device__ __forceinline__ void hwcd3_tail(const Fe& A, const Fe& B, const Fe& C
   Y3 = mont_mul(G, H, fc);
   Z3 = mont_mul(F, G, fc);
   T3 = mont_mul(E, H, fc);
-}
-
-__device__ __forceinline__ void hwcd3(const Fe& X1, const Fe& Y1, const Fe& Z1, const Fe& T1,
-                                      const Fe& X2, const Fe& Y2, const Fe& Z2, const Fe& T2,
-                                      Fe& X3, Fe& Y3, Fe& Z3, Fe& T3, const FieldConsts& fc) {
-  const Fe A = mont_mul(f_sub(Y1, X1, fc), f_sub(Y2, X2, fc), fc);
-  const Fe B = mont_mul(f_add(Y1, X1, fc), f_add(Y2, X2, fc), fc);
-  const Fe C = mont_mul(mont_mul(T1, T2, fc), fe_from<S>(fc.curve[0]), fc);
-  const Fe ZZ = mont_mul(Z1, Z2, fc);
-  hwcd3_tail(A, B, C, f_add(ZZ, ZZ, fc), X3, Y3, Z3, T3, fc);
 }
 
 // ---- K10: fused level-1 pair add of two signed affine slots -----------------
@@ -105,31 +101,73 @@ ed_pair_add_kernel(const __grid_constant__ Operands ops, int64_t W,
   store_out(ops, 11, lane, T3);
 }
 
-// ---- K11: unified extended add, optionally masked ---------------------------
+// ---- K11: unified extended add, optionally masked, G threads a point ---------
+// hwcd-3 on two points as three levels of products (group.cuh), K12's
+// levels with P2's coordinates as the second operands. Slots: 0-3 X1 Y1
+// Z1 T1, 4-7 X2 Y2 Z2 T2, 8 the constant k R; level 1 writes to 9-12
+//   A = (Y1 - X1)(Y2 - X2), B = (Y1 + X1)(Y2 + X2), TT = T1 T2, D = Z1 (Z2 + Z2);
+// level 2 writes C = TT (k R) to 13; level 3 writes X3 Y3 Z3 T3 to 0-3:
+//   X3 = (B - A)(D - C), Y3 = (D + C)(B + A), Z3 = (D - C)(D + C), T3 = (B - A)(B + A),
+// hwcd3's E F, G H, F G, E H, each operand's sum or difference formed by the
+// thread that takes the product; every value < 2p. A level reads no slot
+// that it writes, and the warp syncs between levels. Where MASKED and the
+// mask is 0, the block stores P1's stored limbs, bit for bit, as the plain
+// twin and K4m do (not the reduced P1 the loads give, which is equal mod p
+// but not the limbs the caller gave).
 // ops: X1 Y1 Z1 T1 X2 Y2 Z2 T2 [mask] X3 Y3 Z3 T3
-template <bool MASKED>
+template <int G, bool MASKED>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-ed_add_kernel(const __grid_constant__ Operands ops, int64_t W,
-              const __grid_constant__ FieldConsts fc) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= W) return;
-  const Fe X1 = load_reduced(ops, 0, lane, fc), Y1 = load_reduced(ops, 1, lane, fc);
-  const Fe Z1 = load_reduced(ops, 2, lane, fc), T1 = load_reduced(ops, 3, lane, fc);
-  Fe X3, Y3, Z3, T3;
-  hwcd3(X1, Y1, Z1, T1, load_reduced(ops, 4, lane, fc), load_reduced(ops, 5, lane, fc),
-        load_reduced(ops, 6, lane, fc), load_reduced(ops, 7, lane, fc), X3, Y3, Z3, T3, fc);
-  constexpr int out = MASKED ? 9 : 8;
-  if (MASKED && !load_flag(ops, 8, lane)) {
-    X3 = X1;
-    Y3 = Y1;
-    Z3 = Z1;
-    T3 = T1;
+ed_add_group_kernel(const __grid_constant__ Operands ops, int64_t W,
+                    const __grid_constant__ FieldConsts fc) {
+  using Gr = Group<G>;
+  constexpr int P = Gr::POINTS, ST = Gr::STRIDE;
+  __shared__ uint32_t sh[14 * S::NW * ST];
+  __shared__ bool keep[P];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * P;
+  const int n = static_cast<int>(W - base < P ? W - base : P);  // this block's points
+  for (int i = threadIdx.x; i < 8 * P; i += BLOCK_THREADS) {
+    const int c = i / P, pt = i % P;
+    if (pt < n) sh_put<S, ST>(sh, c, pt, load_reduced(ops, c, base + pt, fc));
   }
-  store_out(ops, out, lane, X3);
-  store_out(ops, out + 1, lane, Y3);
-  store_out(ops, out + 2, lane, Z3);
-  store_out(ops, out + 3, lane, T3);
+  for (int pt = threadIdx.x; pt < n; pt += BLOCK_THREADS) {
+    sh_put<S, ST>(sh, 8, pt, fe_from<S>(fc.curve[0]));
+    if (MASKED) keep[pt] = load_flag(ops, 8, base + pt);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, grp = lane / G, rank = lane % G;
+  const int pt = (threadIdx.x >> 5) * Gr::PER_WARP + grp;
+  const bool active = grp < Gr::PER_WARP && pt < n;
+  // each level's table: operands (a +- a2)(b +- b2), a difference where
+  // bit j of sa (sb) is set, product j into slot out + j
+  constexpr uint32_t none = nibbles(NONE, NONE, NONE, NONE);
+  group_products<S, G, true>(sh, active, pt, rank, 4, nibbles(1, 1, 3, 2),
+                             nibbles(0, 0, NONE, NONE), 0b0001, nibbles(5, 5, 7, 6),
+                             nibbles(4, 4, NONE, 6), 0b0001, 9, fc);
+  group_products<S, G, false>(sh, active, pt, rank, 1, nibbles(11), none, 0, nibbles(8), none, 0,
+                              13, fc);
+  group_products<S, G, true>(sh, active, pt, rank, 4, nibbles(10, 12, 12, 10),
+                             nibbles(9, 13, 13, 9), 0b1101, nibbles(12, 10, 12, 10),
+                             nibbles(13, 9, 13, 9), 0b0001, 0, fc);
+  __syncthreads();
+  constexpr int out = MASKED ? 9 : 8;
+  for (int i = threadIdx.x; i < 4 * P; i += BLOCK_THREADS) {
+    const int c = i / P, q = i % P;
+    if (q >= n) continue;
+    if (MASKED && !keep[q]) {  // P1's stored limbs, bit for bit
+      copy_rows<S::NL>(ops, c, out + c, base + q);
+    } else {
+      store_out(ops, out + c, base + q, sh_get<S, ST>(sh, c, q));
+    }
+  }
 }
+
+// K11's G, the threads a point: 4, a level of at most 4 products in one
+// round, at every width, masked or not. Measured beside it and removed
+// (PERF.md keeps the times): G = 2 (won no width); the one-thread kernel,
+// 17-21 % behind per Edwards MSM, ahead only at 32,768 < W <= 65,536 by
+// less than the spread between turns, and masked 1.3-2.1x behind (its
+// warps diverge on the mask).
+constexpr int K11_GROUP = 4;
 
 // ---- K12: k chained unified doublings, G threads a point (group.cuh) ------
 // hwcd-3 with both operands equal, as three levels of products a doubling.
@@ -219,12 +257,12 @@ extern "C" int msm_ed_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, i
   if (shape != S::ID || !fits<S>(consts)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto fc = field_consts_from_host<S>(consts);
+  const Operands ops = operands_from_host(ptrs, lds, masked ? 13 : 12);
+  const dim3 grid = Group<K11_GROUP>::grid(W);
   if (masked) {
-    ed_add_kernel<true><<<grid_for(W), BLOCK_THREADS, 0, s>>>(
-        operands_from_host(ptrs, lds, 13), W, fc);
+    ed_add_group_kernel<K11_GROUP, true><<<grid, BLOCK_THREADS, 0, s>>>(ops, W, fc);
   } else {
-    ed_add_kernel<false><<<grid_for(W), BLOCK_THREADS, 0, s>>>(
-        operands_from_host(ptrs, lds, 12), W, fc);
+    ed_add_group_kernel<K11_GROUP, false><<<grid, BLOCK_THREADS, 0, s>>>(ops, W, fc);
   }
   return static_cast<int>(cudaGetLastError());
 }

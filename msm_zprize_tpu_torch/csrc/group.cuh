@@ -1,7 +1,7 @@
 // The group design of the curve kernels: G threads of one warp own a point
 // and split each level of a formula's independent products among them.
-// Used by the Weierstrass K3, K4, K4m and K5 (curve.cuh) and the Edwards
-// K12 (edwards.cu).
+// Used by the Weierstrass K3, K4, K4m, K5 and K7 (curve.cuh) and the
+// Edwards K11 and K12 (edwards.cu).
 //
 // A block of BLOCK_THREADS threads handles Group<G>::POINTS points: each warp
 // holds 32 / G groups of G consecutive threads (a group never straddles a

@@ -365,13 +365,20 @@ def proj_double(W, X1, Y1, Z1):
 def proj_add_mixed(W, X1, Y1, Z1, x2, y2, inf2):
     """K7: (X1:Y1:Z1) + the affine point (x2, y2), or P1 bit for bit where
     inf2 is set (the affine operand is infinity)."""
+    return _proj_add_mixed(W, 0, X1, Y1, Z1, x2, y2, inf2)
+
+
+def _proj_add_mixed(W, group, X1, Y1, Z1, x2, y2, inf2):
+    """``proj_add_mixed`` on the instance with G = ``group`` threads a point
+    (one of ``_groups``; 0: the width table's pick). For comparing the
+    instances on the card; the engines call ``proj_add_mixed``."""
     args = (X1, Y1, Z1, x2, y2, inf2)
     if _build.on_cpu(*args):
         return proj_add_mixed_plain(W, *args)
     batch = X1.shape[1:]
     ins, lds, width = field_rows(W.storage.rows, (X1, Y1, Z1, x2, y2), batch)
     ins = ins + flag_rows((inf2,), width)
-    return _launch(W, K7, ins, lds + [0], width, batch)
+    return _launch(W, K7, ins, lds + [0], width, batch, group=group)
 
 
 def proj_double_k(W, X1, Y1, Z1, k: int):
@@ -394,7 +401,7 @@ def _proj_double_k(W, group, X1, Y1, Z1, k: int):
 
 def _group_for(W, name: str, width: int) -> int:
     """G, the threads a point, of the instance that kernel ``name`` (K3,
-    K4, K4m, K5) launches with at ``width`` lanes on W's field and storage:
+    K4, K4m, K5, K7) launches with at ``width`` lanes on W's field and storage:
     the kernels' own table (csrc/curve.cuh::curve_group)."""
     lib, _ = _build.library()
     return lib.msm_curve_group(_build.field_shape(W.F), W.storage.codec_arg(W.F),
@@ -402,9 +409,9 @@ def _group_for(W, name: str, width: int) -> int:
 
 
 def _groups(W, name: str) -> tuple[int, ...]:
-    """The Gs of the instances of kernel ``name`` (K3, K4, K4m, K5) built on
-    W's field and storage, as the kernels' library lists them
-    (csrc/curve.cuh::K3Groups, K4Groups, K4mGroups, K5Groups)."""
+    """The Gs of the instances of kernel ``name`` (K3, K4, K4m, K5, K7)
+    built on W's field and storage, as the kernels' library lists them
+    (csrc/curve.cuh::K3Groups, K4Groups, K4mGroups, K5Groups, K7Groups)."""
     lib, _ = _build.library()
     shape, out = _build.field_shape(W.F), (ctypes.c_int * 8)()
     count = lib.msm_curve_groups(shape, W.storage.codec_arg(W.F), KERNEL_IDS[name],

@@ -30,7 +30,7 @@ __all__ = [
     "ed_pair_add_plain", "ed_add_plain", "ed_double_k_plain",
 ]
 
-K10, K11, K12 = "k10_ed_pair_add", "k11_ed_add", "k12_ed_double_k"
+K10, K11, K11M, K12 = "k10_ed_pair_add", "k11_ed_add", "k11m_ed_add_masked", "k12_ed_double_k"
 
 
 # ---- plain twins (the JAX jnp-path formulas) ---------------------------------
@@ -104,7 +104,8 @@ def ed_pair_add(E, x1, y1, s1, v1, x2, y2, s2, v2):
 
 def ed_add(E, X1, Y1, Z1, T1, X2, Y2, Z2, T2, mask=None):
     """K11: unified add of (X1:Y1:Z1:T1) and (X2:Y2:Z2:T2); with ``mask``,
-    lanes where mask == 0 return the first operand."""
+    lanes where mask == 0 return the first operand bit for bit (counted
+    under K11M: no MSM path runs the masked kernel)."""
     ops = (X1, Y1, Z1, T1, X2, Y2, Z2, T2)
     if _build.on_cpu(*ops, *(() if mask is None else (mask,))):
         return ed_add_plain(E, *ops, mask=mask)
@@ -113,7 +114,8 @@ def ed_add(E, X1, Y1, Z1, T1, X2, Y2, Z2, T2, mask=None):
     if mask is not None:
         ins = ins + flag_rows((mask,), width)
         lds = lds + [0]
-    return _launch(E, K11, "msm_ed_add", ins, lds, width, batch, extra=(int(mask is not None),))
+    return _launch(E, K11 if mask is None else K11M, "msm_ed_add", ins, lds, width, batch,
+                   extra=(int(mask is not None),))
 
 
 def ed_double_k(E, X1, Y1, Z1, T1, k: int):

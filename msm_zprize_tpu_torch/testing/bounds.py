@@ -50,14 +50,15 @@ def curve_work(kernel: str, rows: int, mm: int, width: int, arg: int = 0,
     (``cuda_curve``'s or ``cuda_edwards``' key, codec prefix allowed) over
     ``width`` lanes of ``rows`` int32 rows a coordinate, with ``mm``
     multiply-adds a product: every input read once, every output written
-    once (K11's mask, one word a lane, is left out); K5's and K12's ``arg``
-    is k; K4m and K7 compute on ``computing`` lanes (default: all)."""
+    once; K5's and K12's ``arg`` is k; K4m and K7 compute on
+    ``computing`` lanes (default: all)."""
     lanes = width if computing is None else computing
     name = kernel.removeprefix("k14_").removeprefix("fma51_").split("_")[0]
     table = {  # (rows read and written, flag words, products) per lane
         "k3": (7 * rows, 4, 9), "k4": (9 * rows, 0, 12), "k4m": (9 * rows, 1, 12),
         "k5": (6 * rows, 0, 8 * max(arg, 1)), "k6": (6 * rows, 0, 8), "k7": (8 * rows, 1, 11),
-        "k10": (8 * rows, 4, 10), "k11": (12 * rows, 0, 9), "k12": (8 * rows, 0, 9 * max(arg, 1)),
+        "k10": (8 * rows, 4, 10), "k11": (12 * rows, 0, 9), "k11m": (12 * rows, 1, 9),
+        "k12": (8 * rows, 0, 9 * max(arg, 1)),
     }
     words, flags, products = table[name]
     return (words + flags) * 4 * width, products * mm * lanes

@@ -28,7 +28,11 @@ with 2p - 1 and 2p - 2 among them, K5 at k = 1, 5 and 12; and every entry
 of the kernels' width table through the engines' wrappers, the table's
 picks equal to the built lists; an instance that is not built (the
 one-thread K4m everywhere, the one-thread K4 on 12-word shapes) is
-refused. The Edwards K12 (one instance) at W = 1 and 23, k = 1, 5 and 11.
+refused. K7 the same way on every storage, at W = 1, a block's points +- 1
+and its path widths (704 and 65,536), its inf2 lanes bit for bit. K11
+(G = 4, unmasked and masked) at W = 1, a block's points +- 1 and the
+Edwards padded path's widths (23 to 471,040), its masked-off lanes bit for
+bit. The Edwards K12 (one instance) at W = 1 and 23, k = 1, 5 and 11.
 Every curve kernel's outputs lie below 2p. An Fp22 and a
 Pallas launch on the same limbs take different shape IDs, and the C
 entries refuse a Pallas field under Fp22's.
@@ -94,6 +98,8 @@ def _vals(G, dev, rng, width, edges=(), bound=None):
 
 GROUP_WIDTHS = (1, 5, 33, 4097)  # cut a group, a warp, a block of every G
 K3_MAIN = 901_120  # K3's main-round width in the 2^16 MSMs
+K7_AFFINE, K7_POINTS = 704, 65_536  # K7's widths: the affine reduction, random_points_fast
+K11_PATH = (23, 736, 23_552, 471_040)  # K11's widths on the Edwards padded path at 2^16
 
 
 def _below_2p(F, g):
@@ -107,21 +113,39 @@ def _block_points(G):
 
 
 def _group_checks(F, Wc, codec, a, halves, f, label):
-    """Every built instance of K3, K4, K4m and K5 (G threads a point, as
+    """Every built instance of K3, K4, K4m, K5 and K7 (G threads a point, as
     ``cuda_curve._groups`` reads them from the library) against the twin:
     K3 at W = 1, at one block's points +- 1 of each instance and at the main
     round's width, its first lanes invalid on either side or both (flags
-    f: s1 v1 s2 v2); K4, K4m and K5 at widths that cut a group or a block,
-    on the strided halves too (K4, K4m), K5 at k = 1, 5 and 12, the
-    pass-through lanes of K4m bit for bit; every output below 2p; the width
-    table's picks equal to the built lists, and an instance that is not
-    built refused."""
-    m = f[0]
+    f: s1 v1 s2 v2); K7 at W = 1, one block's points +- 1 and its path
+    widths; K4, K4m, K5 and K7 at widths that cut a group or a block, on the
+    strided halves too (K4, K4m, K7), K5 at k = 1, 5 and 12, the
+    pass-through lanes of K4m and K7 bit for bit; every output below 2p; the
+    width table's picks equal to the built lists, and an instance that is
+    not built refused."""
+    m, inf = f[0], f[1]
     same = ((lambda g, w: torch.equal(F.fully_reduce(g), F.fully_reduce(w)) and _below_2p(F, g))
             if codec is None else (lambda g, w: _rows_equal(F, codec, g, w)))
     built = {name: cuda_curve._groups(Wc, name) for name in (cuda_curve.K3, cuda_curve.K4,
-                                                            cuda_curve.K4M, cuda_curve.K5)}
+                                                            cuda_curve.K4M, cuda_curve.K5,
+                                                            cuda_curve.K7)}
     reached = set()
+
+    def k7_check(G, args, flag, width):
+        """One K7 instance against the twin, its inf2 lanes P1's rows bit for bit."""
+        got = cuda_curve._proj_add_mixed(Wc, G, *args[:5], flag)
+        want = cuda_curve.proj_add_mixed_plain(Wc, *args[:5], flag)
+        assert all(map(same, got, want)), (label, "K7", G, width)
+        for g, x1 in zip(got, args[:3]):
+            assert torch.equal(g[:, flag == 1], x1[:, flag == 1]), (label, "K7", G, width)
+
+    k7_widths = {1, K7_AFFINE, K7_POINTS} | {_block_points(G) + d for G in built[cuda_curve.K7]
+                                             for d in (-1, 0, 1)}
+    for width in sorted(k7_widths):
+        ops, flag = [_tile(x, width) for x in a[:5]], _tile(inf, width)
+        reached.add((cuda_curve.K7, cuda_curve._group_for(Wc, cuda_curve.K7, width)))
+        for G in built[cuda_curve.K7]:
+            k7_check(G, ops, flag, width)
     v1, v2 = f[1].clone(), f[3].clone()
     v1[:4] = torch.tensor([0, 1, 0, 1], dtype=v1.dtype)
     v2[:4] = torch.tensor([0, 0, 1, 1], dtype=v2.dtype)
@@ -145,6 +169,10 @@ def _group_checks(F, Wc, codec, a, halves, f, label):
             assert pick in groups, (label, name, width, pick)
             reached.add((name, pick))
             for G in groups:
+                if name == cuda_curve.K7:
+                    for args in (ops, strided):
+                        k7_check(G, args, inf[:width], width)
+                    continue
                 if name == cuda_curve.K5:
                     for k in (1, 5, 12):
                         got = cuda_curve._proj_double_k(Wc, G, *ops[:3], k)
@@ -173,7 +201,11 @@ def _group_checks(F, Wc, codec, a, halves, f, label):
         if (name, G) in reached:
             continue
         ops = [_tile(x, width) for x in (k3_ops if name == cuda_curve.K3 else a)]
-        if name == cuda_curve.K3:
+        if name == cuda_curve.K7:
+            flag = _tile(inf, width)
+            got = cuda_curve.proj_add_mixed(Wc, *ops[:5], flag)
+            want = cuda_curve.proj_add_mixed_plain(Wc, *ops[:5], flag)
+        elif name == cuda_curve.K3:
             got, want = cuda_curve.aff_pair_add(Wc, *ops), cuda_curve.aff_pair_add_plain(Wc, *ops)
         elif name == cuda_curve.K5:
             got = cuda_curve.proj_double_k(Wc, *ops[:3], 5)
@@ -193,6 +225,33 @@ def _group_checks(F, Wc, codec, a, halves, f, label):
     for G in {1, 2, 3, 6, 7} - set(built[cuda_curve.K3]):
         with pytest.raises(RuntimeError):
             cuda_curve._aff_pair_add(Wc, G, *k3_ops)
+    for G in {1, 2, 3, 4, 6, 7} - set(built[cuda_curve.K7]):
+        with pytest.raises(RuntimeError):
+            cuda_curve._proj_add_mixed(Wc, G, *a[:5], inf)
+
+
+def _k11_checks(E, a, m, strided):
+    """K11 (G = 4 threads a point), unmasked and masked, against the twin
+    at widths that cut a group, a warp and a block, at one block's points
+    +- 1 and at the Edwards padded path's widths, and on ``strided``
+    (halves of one slot block, read in place); the masked-off lanes P1's
+    limbs bit for bit, every output below 2p."""
+    FE = E.F
+    for masked in (False, True):
+        for width in sorted(set(GROUP_WIDTHS) | set(K11_PATH) | {_block_points(4) + d for d in (-1, 0, 1)}):
+            ops = [_tile(x, width) for x in a]
+            kw = {"mask": _tile(m, width)} if masked else {}
+            got, want = cuda_edwards.ed_add(E, *ops, **kw), cuda_edwards.ed_add_plain(E, *ops, **kw)
+            assert all(torch.equal(FE.fully_reduce(g), FE.fully_reduce(w)) and _below_2p(FE, g)
+                       for g, w in zip(got, want)), ("K11", width, masked)
+            if masked:
+                off = kw["mask"] == 0
+                for g, x1 in zip(got, ops[:4]):
+                    assert torch.equal(g[:, off], x1[:, off]), ("K11", width)
+        kw = {"mask": m} if masked else {}
+        got, want = cuda_edwards.ed_add(E, *strided, **kw), cuda_edwards.ed_add_plain(E, *strided, **kw)
+        assert all(torch.equal(FE.fully_reduce(g), FE.fully_reduce(w))
+                   for g, w in zip(got, want)), ("K11 strided", masked)
 
 
 def _tile(x, width):
@@ -363,6 +422,7 @@ def test_kernels_match_plain_twins(dev):
     for name, (got, want) in pairs.items():
         for g, w in zip(got, want):
             assert torch.equal(FE.fully_reduce(g), FE.fully_reduce(w)), name
+    _k11_checks(E, a, m, (slot[:, :WIDTH], *a[1:4], slot[:, WIDTH:], *a[5:]))
     # K12 (G = 4 threads a point) at its MSM widths and k's, every output
     # below 2p
     for width in (1, 23):
