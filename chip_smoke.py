@@ -32,9 +32,15 @@ non-zero and no result line is printed):
    from 16,384 lanes up with its code flushed from the L2; masked (on no
    MSM path) at the widest and at W = 1. The other timed calls replay one
    input set, which stays in the 50 MB L2 below ~45k lanes; per-MSM sums
-   come from ``profile_msm``. K5's, K11's (at W = 1) and K12's lines also
-   give their latency floors: dependent product levels times one
-   product's latency (K8's time over its products);
+   come from ``profile_msm``. K8 (one warp a lane) runs at W = 1, 4 and
+   64 and at e = 1, with its own measured product cost (e = p - 2 less
+   e = 1, over its chain's products; not a bound) and its bound on the
+   products x^e needs; K6 (K5's group kernel at k = 1) at the subgroup
+   check's 256 lanes on every storage. K5's, K11's (at W = 1) and K12's
+   lines give their latency floors: dependent product levels times one
+   thread's product latency, which K8's probe measures (x^e by binary
+   square-and-multiply with one-thread ``mont_mul`` calls, operands in
+   registers; no path runs it);
 3. BLS12-377: the MSM at N = 8 and its edge cases against two host oracles
    (double-and-add per point, and the known discrete logs);
 4. BLS12-377: the 2^16 MSM against its known-discrete-log result, with the
@@ -331,6 +337,49 @@ def main() -> None:
                           for g, t in times.items()) + floor)
         return worst, ms[pick], _cuda_ms(torch, lambda: plain(args), PLAIN_REPS)
 
+    def k8_rows(G, key, name, tag, run, x, mm):
+        """K8 (batch_inverse's Fermat inverse, e = p - 2) against its twin at
+        W = 1 (its row), 4 and 64 on ``x``'s first lanes, timed there and
+        at e = 1 (the chain's fixed cost: its two domain changes and the
+        launch). Its bound counts the multiply-adds of the products x^e
+        needs (its chain's, the domain changes left out); the bit length
+        plus popcount that binary square-and-multiply would take is printed
+        beside it as a note. K8's own product cost (e = p - 2 less e = 1,
+        over the chain's products) is a measurement, not a bound. Then
+        K8's probe (x^e on one thread by binary square-and-multiply,
+        operands in registers: the chain K8 ran before its warp design),
+        timed less its launch (the probe at e = 0): over its products, one
+        thread's dependent product latency, returned for the curve kernels'
+        floors and printed times K8's chain beside K8."""
+        e = G.p - 2
+        products = cuda_mul.exp_products(cuda_mul.exp_chain(e))
+        widths = (1, 4, 64)
+        err = max(curve_err(G, [cuda_mul.exp_const(G, x[:, :w], e)], [G.exp_const_plain(x[:, :w], e)])
+                  for w in widths)
+        ms = {w: _graph_ms(torch, lambda w=w: cuda_mul.exp_const(G, x[:, :w], e)) for w in widths}
+        ms_e1 = _graph_ms(torch, lambda: cuda_mul.exp_const(G, x[:, :1], 1))
+        own = (ms[1] - ms_e1) / products
+        kernel_row(key, name, "K8", "montmul.cu", "msm_zprize_tpu/fields/pallas_mul.py:237", run,
+                   cuda_mul.K8, err, ms[1],
+                   _cuda_ms(torch, lambda: G.exp_const_plain(x[:, :1], e), PLAIN_REPS),
+                   f"({G.n}, 1), e = p - 2", 2 * G.n * 4, products * mm)
+        binary = cuda_mul.probe_products(e)
+        probe_err = curve_err(G, [cuda_mul._exp_probe(G, x[:, :1], e)], [G.exp_const_plain(x[:, :1], e)])
+        if probe_err:
+            raise AssertionError(f"K8's probe on {tag} disagrees with the twin: {probe_err}")
+        probe_ms = (_graph_ms(torch, lambda: cuda_mul._exp_probe(G, x[:, :1], e))
+                    - _graph_ms(torch, lambda: cuda_mul._exp_probe(G, x[:, :1], 0))) / binary
+        print(f"    K8 {tag}: W=4 {ms[4]:.4f} ms, W=64 {ms[64]:.4f} ms, e = 1 {ms_e1:.4f} ms; bound "
+              f"on {products} products x {mm} multiply-adds (binary square-and-multiply: "
+              f"{binary} products, {binary * mm / imad_rate * 1e3:.6f} ms); K8's own product "
+              f"(measured, not a bound: e = p - 2 less e = 1, over {products}) {own * 1e3:.3f} us; "
+              f"the chain on one thread's mont_mul: {products} x {probe_ms * 1e3:.3f} us = "
+              f"{products * probe_ms:.4f} ms")
+        print(f"    one dependent product's latency on one thread ({tag}; K8's probe: binary "
+              f"square-and-multiply, {binary} mont_mul calls, operands in registers, less the "
+              f"probe at e = 0): {probe_ms * 1e3:.3f} us")
+        return probe_ms
+
     def weierstrass_rows(cv, tag, units, runs):
         """K1, K2, K8 and K3-K7 of one Weierstrass curve at the shapes of its
         2^16 MSM, on each storage in ``units`` ((ops, curve unit, run of its
@@ -359,17 +408,7 @@ def main() -> None:
                    _graph_ms(torch, lambda: cuda_mul.montmul(G, x, y)),
                    _cuda_ms(torch, lambda: G.montmul_plain(x, y), PLAIN_REPS), f"({n}, {N})",
                    3 * n * 4 * N, mm * N)
-        e = G.p - 2  # batch_inverse's one Fermat inverse, on one lane
-        k8_ms = _graph_ms(torch, lambda: cuda_mul.exp_const(G, x[:, :1], e))
-        k8_products = e.bit_length() + bin(e).count("1")
-        product_ms = k8_ms / k8_products  # one dependent product's latency on one lane
-        kernel_row(f"k8_{tag}", f"exp_const_{tag}", "K8", "montmul.cu",
-                   "msm_zprize_tpu/fields/pallas_mul.py:237", runs["affine"], cuda_mul.K8,
-                   mod_p_err(G, [cuda_mul.exp_const(G, x[:, :1], e)], [G.exp_const_plain(x[:, :1], e)]),
-                   k8_ms, _cuda_ms(torch, lambda: G.exp_const_plain(x[:, :1], e), PLAIN_REPS),
-                   f"({n}, 1), e = p - 2", 2 * n * 4, k8_products * mm)
-        print(f"    one dependent product's latency on {tag} (K8 on one lane over its "
-              f"{k8_products} products): {product_ms * 1e3:.3f} us")
+        product_ms = k8_rows(G, f"k8_{tag}", f"exp_const_{tag}", tag, runs["affine"], x, mm)
 
         def wei_instances(Wc, kernel, shape, args, err_of, inst, plain, chain=0):
             """``instances`` of curve kernel ``kernel`` on the storage of Wc, as
@@ -521,18 +560,7 @@ def main() -> None:
                _cuda_ms(torch, lambda: FE.montmul_plain(x, y), PLAIN_REPS), f"({n22}, {N})",
                3 * n22 * 4 * N, mm8 * N)
 
-    e = FE.p - 2  # batch_inverse's one Fermat inverse, on one lane
-    x1 = field_elems(FE, 1)
-    k8_ms = _graph_ms(torch, lambda: cuda_mul.exp_const(FE, x1, e))
-    k8_products = e.bit_length() + bin(e).count("1")
-    ed_product_ms = k8_ms / k8_products  # one dependent product's latency on one lane
-    kernel_row("k8", "exp_const", "K8", "montmul.cu",
-               "msm_zprize_tpu/fields/pallas_mul.py:237", ed_run, cuda_mul.K8,
-               mod_p_err(FE, [cuda_mul.exp_const(FE, x1, e)], [FE.exp_const_plain(x1, e)]),
-               k8_ms, _cuda_ms(torch, lambda: FE.exp_const_plain(x1, e), PLAIN_REPS),
-               f"({n22}, 1), e = p - 2", 2 * n22 * 4, k8_products * mm8)
-    print(f"    one dependent product's latency on ed-on-bls12-377 (K8 on one lane over its "
-          f"{k8_products} products): {ed_product_ms * 1e3:.3f} us")
+    ed_product_ms = k8_rows(FE, "k8", "exp_const", "ed-on-bls12-377", ed_run, x, mm8)
 
     scal = ed.random_scalars(N, seed=SEED, device=dev)
     gm, gs = cuda_scalar.simple_digits(scal, ce, Ke)

@@ -45,6 +45,7 @@ _ENTRIES = {
     "msm_montmul": [_P, _P, _W, _I, _P, _P],
     "msm_montmul_rows": [_P, _P, _W, _I, _I, _P, _P],
     "msm_exp_const": [_P, _P, _W, _I, _P, _P, _P],
+    "msm_exp_probe": [_P, _P, _W, _I, _P, _P, _P],
     "msm_glv_digits": [_P, _P, _W, _I, _I, _P, _P],
     "msm_simple_digits": [_P, _P, _W, _I, _I, _I, _P],
     # K3-K7 and K14: (ptrs, lds, width, shape, kernel, codec, arg, group, consts, stream)
@@ -56,7 +57,7 @@ _ENTRIES = {
     "msm_ed_double_k": [_P, _P, _W, _I, _I, _P, _P],
     "msm_field_const_words": [_I],
     "msm_codec_rows": [_I, _I],
-    "msm_exp_words": [],
+    "msm_exp_layout": [_I, _P],
     "msm_glv_const_words": [],
 }
 

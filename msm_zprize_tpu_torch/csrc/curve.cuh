@@ -1,7 +1,7 @@
 // K3, K4, K4m, K5, K6, K7: complete short-Weierstrass (a = 0) point
-// formulas on Montgomery-form coordinates, one thread a lane (K6; K3, K4
-// and K7 also, K4m and K5 only, with G threads a lane: the group design),
-// and their launcher. Each kernel is a template on its storage policy St (codec.cuh),
+// formulas on Montgomery-form coordinates, G threads a lane (the group
+// design; K3, K4 and K7 also one thread a lane where a width table picks
+// it; K6 is K5's instance at k = 1), and their launcher. Each kernel is a template on its storage policy St (codec.cuh),
 // which names the field shape St::S: LimbStore<S> reads and writes (NL, W)
 // 12-bit limb tensors (K3-K7), RowStore<S, C> (C::ROWS, W) row-codec
 // tensors (K14, the same formulas on PackedCodec or Fma51Codec storage).
@@ -29,7 +29,7 @@
 //   K5 proj_double_k  <- CurveKernels.proj_double_k, body _proj_double_k_body
 //                        (k chained rcb9, RCB Alg. 9, 8 muls each)
 //   K6 proj_double    <- CurveKernels.proj_double, body _proj_double_body
-//                        (one rcb9)
+//                        (one rcb9: K5's group kernel at k = 1)
 //   K7 proj_add_mixed <- CurveKernels.proj_add_mixed, _proj_add_mixed_body
 //                        (rcb8: RCB Alg. 8, projective + affine, 11 muls;
 //                        where the affine operand is infinity, P1 passes)
@@ -57,8 +57,8 @@
 // same bounds: every product and add on any thread of a group takes and
 // returns values < 2p.
 //
-// What bounds them on an H100. One thread a point (K6, and K3, K4 and K7
-// at G = 1): about ten live 384-bit values and the CIOS accumulator take
+// What bounds them on an H100. One thread a point (K3, K4 and K7 at
+// G = 1): about ten live 384-bit values and the CIOS accumulator take
 // 152-246 registers a thread, so an SM holds 2-3 blocks of 128 threads, and
 // the formula's 8-12 products are inlined one after another, 10-16k SASS
 // instructions (160-250 KB) that one lane walks serially: measured, the
@@ -66,15 +66,16 @@
 // one-lane chain takes ~2.8x its products' latency a product (the code
 // does not stay in the instruction cache).
 //
-// K3, K4, K4m, K5 and K7 also run as the group design (below, group.cuh):
-// G threads a point, splitting each level of the formula's independent
-// products (rcb7: two levels of six; K3's rcb7 with unit Z: a level of
+// K3, K4, K4m, K5 and K7 run as the group design (below, group.cuh), and
+// K6 on K5's kernel: G threads a point, splitting each level of the
+// formula's independent products (rcb7: two levels of six; K3's rcb7 with unit Z: a level of
 // three, then rcb7's second level; rcb8: a level of five, then rcb7's
 // second level; rcb9: two levels of four a doubling) among the group,
 // exchanging values through shared memory. It replaces, for K3,
 // pallas_curve.py:345-372 (_aff_pair_add_body, rcb7_unitz at :589-641), for
 // K4/K4m :272-289 (_proj_add_body, rcb7 at :515), for K5 :302-324
-// (_proj_double_k_body, k x rcb9 at :566) and, for K7, :330-343 and
+// (_proj_double_k_body, k x rcb9 at :566), for K6 :291-300 and :394
+// (_proj_double_body, one rcb9) and, for K7, :330-343 and
 // :397-403 (_proj_add_mixed_body, rcb8 at :542-564). A one-lane chain then
 // waits on 2 dependent products a level instead of 8 or 12, each level
 // calls mont_mul from one loop (1.6-5.5k SASS instructions a kernel),
@@ -123,29 +124,6 @@ __device__ __forceinline__ void rcb7(const Fe<S>& X1, const Fe<S>& Y1, const Fe<
   X3 = f_sub(mont_mul(t3, t1, fc), mont_mul(t4, y3, fc), fc);
   Y3 = f_add(mont_mul(t1, z3, fc), mont_mul(y3, t0, fc), fc);
   Z3 = f_add(mont_mul(z3, t4, fc), mont_mul(t0, t3, fc), fc);
-}
-
-// RCB Alg. 9, complete doubling, a = 0 (valid on the odd-order subgroup).
-template <class S>
-__device__ __forceinline__ void rcb9(Fe<S>& X, Fe<S>& Y, Fe<S>& Z, const FieldConsts<S>& fc) {
-  using Fe = msm::Fe<S>;
-  Fe t0 = mont_square(Y, fc);
-  Fe z3 = f_add(t0, t0, fc);
-  z3 = f_add(z3, z3, fc);
-  z3 = f_add(z3, z3, fc);  // 8 * Y^2
-  Fe t1 = mont_mul(Y, Z, fc);
-  Fe t2 = mul_b3(mont_square(Z, fc), fc);
-  Fe x3 = mont_mul(t2, z3, fc);
-  Fe y3 = f_add(t0, t2, fc);
-  z3 = mont_mul(t1, z3, fc);
-  t2 = f_add(f_add(t2, t2, fc), t2, fc);
-  t0 = f_sub(t0, t2, fc);
-  y3 = f_add(x3, mont_mul(t0, y3, fc), fc);
-  t1 = mont_mul(X, Y, fc);
-  x3 = mont_mul(t0, t1, fc);
-  X = f_add(x3, x3, fc);
-  Y = y3;
-  Z = z3;
 }
 
 // RCB Alg. 8, complete mixed addition (Z2 = 1), a = 0.
@@ -405,13 +383,14 @@ aff_pair_add_group_kernel(const __grid_constant__ Operands ops, int64_t W,
   group_rcb7_finish<St, G, false>(sh, active, pt, rank, ops, 8, base, n, nullptr, fc);
 }
 
-// RCB Alg. 9, k times, as two levels of four products each. Slots: 0-2 X Y
-// Z; level 1 writes m0-m3 to 3-6:
+// RCB Alg. 9 (complete doubling, a = 0, valid on the odd-order subgroup),
+// k times, as two levels of four products each; K6 is this kernel at k = 1
+// (launch_curve). Slots: 0-2 X Y Z; level 1 writes m0-m3 to 3-6:
 //   m0 = Y^2, m1 = Y Z, m2 = Z^2, m3 = X Y;
 // the glue writes to 7-10: t2 = 3b m2, z3 = 8 m0, y3 = m0 + t2, t0 = m0 - 3 t2;
 // level 2 writes n0-n3 to 11-14:
 //   n0 = t2 z3, n1 = m1 z3, n2 = t0 y3, n3 = t0 m3;
-// and the next X Y Z go to 0-2: X = 2 n3, Y = n0 + n2, Z = n1 (rcb9 above).
+// and the next X Y Z go to 0-2: X = 2 n3, Y = n0 + n2, Z = n1.
 // ops: X1 Y1 Z1 X3 Y3 Z3
 template <class St, int G>
 __global__ void __launch_bounds__(BLOCK_THREADS)
@@ -466,25 +445,6 @@ proj_double_k_group_kernel(const __grid_constant__ Operands ops, int64_t W, int 
     const int c = i / P, q = i % P;
     if (q < n) St::store(ops, 3 + c, base + q, sh_get<S, ST>(sh, c, q));
   }
-}
-
-// ---- K6: one complete doubling -----------------------------------------------
-// ops: X1 Y1 Z1 X3 Y3 Z3
-template <class St>
-__global__ void __launch_bounds__(BLOCK_THREADS)
-proj_double_kernel(const __grid_constant__ Operands ops, int64_t W,
-                   const __grid_constant__ FieldConsts<typename St::S> fc) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= W) return;
-  using S = typename St::S;
-  using Fe = msm::Fe<S>;
-  Fe X = St::load(ops, 0, lane, fc);
-  Fe Y = St::load(ops, 1, lane, fc);
-  Fe Z = St::load(ops, 2, lane, fc);
-  rcb9(X, Y, Z, fc);
-  St::store(ops, 3, lane, X);
-  St::store(ops, 4, lane, Y);
-  St::store(ops, 5, lane, Z);
 }
 
 // ---- K7: projective + affine (mixed) add ----------------------------------------
@@ -615,7 +575,7 @@ int curve_group(int kernel, int64_t W, bool masked, bool rows) {
     if (W <= 40960) return 2;
     return rows && S::ID == Fp32::ID && W > 655360 ? 1 : 3;
   }
-  if (kernel == CURVE_K5) return 4;
+  if (kernel == CURVE_K5 || kernel == CURVE_K6) return 4;  // K6: K5's instance, k = 1
   if (kernel == CURVE_K7) return W <= 12288 ? 6 : S::NW == 8 ? 1 : 2;
   if (kernel != CURVE_K4) return 1;
   if (W <= 12288) return 6;
@@ -708,7 +668,6 @@ int launch_curve(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W
   using S = typename St::S;
   if (!fits<S>(consts)) return static_cast<int>(cudaErrorInvalidValue);
   const auto fc = field_consts_from_host<S>(consts);
-  const unsigned grid = grid_for(W);
   const int g = group > 0 ? group : curve_group<S>(kernel, W, arg != 0, St::ROWS);
   switch (kernel) {
     case CURVE_K3:
@@ -729,15 +688,12 @@ int launch_curve(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W
       break;
     }
     case CURVE_K5:
+    case CURVE_K6:  // one doubling: K5's group instance at k = 1
       if (!with_group(K5Groups{}, g, [&](auto G) {
-            launch_k5<St, decltype(G)::value>(arg, ptrs, lds, W, fc, s);
+            launch_k5<St, decltype(G)::value>(kernel == CURVE_K6 ? 1 : arg, ptrs, lds, W, fc, s);
           })) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
-      break;
-    case CURVE_K6:
-      proj_double_kernel<St><<<grid, BLOCK_THREADS, 0, s>>>(operands_from_host(ptrs, lds, 6), W,
-                                                             fc);
       break;
     case CURVE_K7:
       if (!with_group(K7Groups<S>{}, g, [&](auto G) {

@@ -9,7 +9,8 @@ Replace the formula bodies of ``msm_zprize_tpu/curves/pallas_curve.py``:
 * ``proj_add``       (K4, ``rcb7``): complete projective addition; with a
   per-lane ``mask`` (K4m) lanes where mask == 0 return P1's limbs unchanged;
 * ``proj_double_k``  (K5, k x ``rcb9``): k chained complete doublings;
-* ``proj_double``    (K6, ``rcb9``): one complete doubling;
+* ``proj_double``    (K6, ``rcb9``): one complete doubling (on the card,
+  K5's group kernel at k = 1);
 * ``proj_add_mixed`` (K7, ``rcb8``): projective + affine (x2, y2, inf2);
   lanes where inf2 is set return P1's limbs unchanged.
 
@@ -354,7 +355,8 @@ def _proj_add(W, group, X1, Y1, Z1, X2, Y2, Z2, mask=None):
 
 
 def proj_double(W, X1, Y1, Z1):
-    """K6: one complete doubling."""
+    """K6: one complete doubling (the C entry launches K5's group instance
+    at k = 1; counted under K6's own key)."""
     if _build.on_cpu(X1, Y1, Z1):
         return proj_double_plain(W, X1, Y1, Z1)
     batch = X1.shape[1:]

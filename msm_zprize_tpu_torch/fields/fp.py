@@ -30,6 +30,18 @@ __all__ = ["MontgomeryFp", "make_field"]
 
 
 _GROUP = 4  # limbs per int64 carry group (48 bits)
+# CPU lanes up to which montmul_plain and _normalize compute their integers
+# with Python ints: there the tensor ops cost more than the arithmetic (a
+# product: ~1 ms against ~40 us a lane)
+_INT_LANES = 32
+
+
+def _limbs_value(limbs, w: int) -> int:
+    """The integer of one lane's limbs (signed limbs allowed)."""
+    v = 0
+    for limb in reversed(limbs):
+        v = (v << w) + limb
+    return v
 
 
 def _normalize(cols: torch.Tensor, w: int, relax_rounds: int = 0):
@@ -46,6 +58,8 @@ def _normalize(cols: torch.Tensor, w: int, relax_rounds: int = 0):
     chain runs over m/4 groups: far fewer tensor ops for the same exact
     result."""
     m = cols.shape[0]
+    if cols.device.type == "cpu" and 0 < cols[0].numel() <= _INT_LANES:
+        return _normalize_ints(cols, w)
     mask = (1 << w) - 1
     c = cols.to(torch.int64)
     pad = -m % _GROUP
@@ -70,6 +84,20 @@ def _normalize(cols: torch.Tensor, w: int, relax_rounds: int = 0):
     if pad:  # the padding limbs hold the low part of the carry out of limb m-1
         carry = (groups[-1] >> (w * (_GROUP - pad))) + (carry << (w * pad))
     return digits.to(DTYPE), carry
+
+
+def _normalize_ints(cols: torch.Tensor, w: int):
+    """``_normalize`` on few CPU lanes, lane by lane with Python ints: the
+    digits of the columns' value mod 2^(w m) and its floor over 2^(w m),
+    the same integers as the carry chain's."""
+    m, mask = cols.shape[0], (1 << w) - 1
+    digits, carries = [], []
+    for col in cols.reshape(m, -1).T.tolist():
+        v = _limbs_value(col, w)
+        carries.append(v >> (w * m))
+        digits.append([(v >> (w * i)) & mask for i in range(m)])
+    return (torch.tensor(digits, dtype=DTYPE).T.reshape(cols.shape),
+            torch.tensor(carries, dtype=torch.int64).reshape(cols.shape[1:]))
 
 
 def _polymul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -115,7 +143,7 @@ class MontgomeryFp:
         self.scheme = LimbScheme(w, n)
         self.p_limbs = np.array(self.scheme.to_limbs(p), dtype=np.int32)
         self.two_p_limbs = np.array(self.scheme.to_limbs(2 * p), dtype=np.int32)
-        pn = (-pow(p, -1, self.R)) % self.R  # -p^-1 mod R (3-product reduction)
+        pn = self.pn = (-pow(p, -1, self.R)) % self.R  # -p^-1 mod R (3-product reduction)
         self.pn_limbs = np.array(self.scheme.to_limbs(pn), dtype=np.int32)
         self.mont_one = self.R % p
         self.R2 = self.R * self.R % p
@@ -216,11 +244,15 @@ class MontgomeryFp:
         q = T*(-p^-1) mod R, out = (T + q*p) / R, with the same unique q, so
         the output is the same integer, bit for bit. Inputs (n, *batch)
         broadcastable, limbs in [-1, 2^w], values < 4p; output canonical
-        limbs, value < 2p. Products are exact int64 columns."""
+        limbs, value < 2p. Products are exact int64 columns; on up to
+        ``_INT_LANES`` CPU lanes the same integer comes from Python ints
+        (``_montmul_ints``)."""
         n, w = self.n, self.w
         batch = torch.broadcast_shapes(x.shape[1:], y.shape[1:])
         xf = x.expand((n,) + batch).reshape(n, -1)
         yf = y.expand((n,) + batch).reshape(n, -1)
+        if xf.device.type == "cpu" and 0 < xf.shape[1] <= _INT_LANES:
+            return self._montmul_ints(xf, yf).reshape((n,) + tuple(batch))
         T = _polymul(xf, yf)  # (2n-1, B), |columns| <= n * 2^24 < 2^30
         A_pn, A_p = self._const_products(T.device)
         # q = (T mod R) * (-p^-1) mod R. The constant products are float64
@@ -235,6 +267,18 @@ class MontgomeryFp:
         hi[0] += carry_low
         out, _ = _normalize(hi, w, 1)
         return out.reshape((n,) + tuple(batch))
+
+    def _montmul_ints(self, xf, yf):
+        """montmul_plain's integer lane by lane: T = x y, q = T (-p^-1) mod R,
+        (T + q p) / R (exact) mod R, the top carry dropped as the limb
+        code's normalize drops it; canonical limbs (n, B)."""
+        n, w, R = self.n, self.w, self.R
+        out = []
+        for xl, yl in zip(xf.T.tolist(), yf.T.tolist()):
+            t = _limbs_value(xl, w) * _limbs_value(yl, w)
+            v = (t + t * self.pn % R * self.p) // R % R
+            out.append([(v >> (w * i)) & self.mask for i in range(n)])
+        return torch.tensor(out, dtype=DTYPE).T.contiguous()
 
     def _const_products(self, device):
         """Float64 Toeplitz matrices of -p^-1 mod R (low n columns) and of p

@@ -223,7 +223,8 @@ def main(argv=None) -> None:
     walls = _stages(args.curve, cv, batches[0], points, args.log_n)
     print(f"[stages] {head}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in walls.items())
           + " (each synchronised, median of 10)")
-    chains = {k: sorted(v) for k, v in by_name.items() if "exp_kernel" in k or "double_k" in k}
+    chains = {k: sorted(v) for k, v in by_name.items()
+              if "exp_warp_kernel" in k or "double_k" in k}
     print(f"[serial] {head}: one-launch device times of the chained kernels (ms): "
           + "; ".join(f"{k} min {v[0] / 1e3:.4f} median {statistics.median(v) / 1e3:.4f} "
                       f"max {v[-1] / 1e3:.4f}" for k, v in sorted(chains.items())))

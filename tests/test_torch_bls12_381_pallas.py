@@ -29,7 +29,7 @@
 Tolerance: K2 bit-exact; field values exact mod p (limb for limb where both
 sides compute the same integer); pass-through lanes bit for bit; MSM
 results exact affine points. No whole-MSM JAX run on XLA:CPU (minutes of
-compile). ONE test item (~230 s serial): the CPU suite's wall time follows
+compile). ONE test item (~140 s serial): the CPU suite's wall time follows
 its item count, and a replay of pytest-xdist's scheduler (``PERF.md``) put
 one item at the lowest predicted wall. The CUDA kernels run on the card in
 ``tests/test_torch_cuda.py``.

@@ -10,7 +10,11 @@ Every test carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is False (decided inside the fixture). Widths
 are odd (ragged last block) and some operands are strided slices, which
 the kernels read in place. Each Weierstrass curve (BLS12-377, BLS12-381
-with n = 33, Pallas with n = 22 and 4p > 2^256) the same way. Tolerance: K2
+with n = 33, Pallas with n = 22 and 4p > 2^256) the same way. K8 (one warp
+a lane) on all four field shapes at W = 1, 3, 64 and 1000 on strided limb
+rows, at ten exponents from 0 to a random 350-bit one, with 0, 1, p - 1
+and 4p - 1 among its inputs, and its one-thread probe; K6 (K5's group
+instance at k = 1) on every storage at W = 1, 256 and 1000. Tolerance: K2
 and K9 bit-exact; K1 limb-exact (the Montgomery product is one integer)
 where 4p < 2^(32 NW), mod p on Pallas (also on inputs in [2^256, 4p), which
 its kernel reduces first); K3-K8 and K10-K12 exact mod p, with operands at
@@ -259,6 +263,34 @@ def _tile(x, width):
     return x.repeat(*([1] * (x.dim() - 1)), -(-width // x.shape[-1]))[..., :width].contiguous()
 
 
+K6_WIDTHS = (1, 256, 1000)  # K6 (K5's group instance at k = 1): a lane, the subgroup check's width
+K8_WIDTHS = (1, 3, 64, 1000)
+
+
+def _k8_checks(F, dev, rng):
+    """K8 on F's shape at widths 1, 3, 64 and 1000 (prefixes of one strided
+    operand: limb rows 2000 apart) and at e in {0, 1, 2, 15, 16, 17,
+    2^64 - 1, p - 2, (p - 1) / 2, a random 350-bit e}, the inputs 0, 1,
+    p - 1 and 4p - 1 (the largest the contract admits; on Pallas above
+    2^256) among the lanes: equal to the twin mod p and below 2p; K8's
+    probe (one thread a lane, binary square-and-multiply) the same at W =
+    64, e = 0 and p - 2."""
+    p = F.p
+    x = _vals(F, dev, rng, 2 * max(K8_WIDTHS), (0, 1, p - 1, 4 * p - 1), bound=4 * p)[:, :max(K8_WIDTHS)]
+    exps = (0, 1, 2, 15, 16, 17, (1 << 64) - 1, p - 2, (p - 1) // 2,
+            int.from_bytes(rng.bytes(44), "little") % (1 << 350) | 1 << 349)
+    for e in exps:
+        want = F.fully_reduce(F.exp_const_plain(x, e))
+        for width in K8_WIDTHS:
+            got = cuda_mul.exp_const(F, x[:, :width], e)
+            assert torch.equal(F.fully_reduce(got), want[:, :width]) and _below_2p(F, got), (width, e)
+    for e in (0, p - 2):
+        got = cuda_mul._exp_probe(F, x[:, :64], e)
+        assert torch.equal(F.fully_reduce(got), F.fully_reduce(F.exp_const_plain(x[:, :64], e))), e
+    with pytest.raises(ValueError):
+        cuda_mul.exp_const(F, x, 1 << 384)
+
+
 def _weierstrass_checks(dev, rng, params):
     """One Weierstrass curve: K1 (also on a strided operand; limb-exact on
     the shapes with 4p < 2^(32 NW), mod p on Pallas, whose kernel reduces
@@ -283,9 +315,7 @@ def _weierstrass_checks(dev, rng, params):
         assert torch.equal(got, want), params.label
     with pytest.raises(ValueError):
         cuda_mul.montmul(F, x.to(torch.int64), y)
-    for e in (0, 5, p - 2):
-        assert torch.equal(F.fully_reduce(cuda_mul.exp_const(F, x[:, :64], e)),
-                           F.fully_reduce(F.exp_const_plain(x[:, :64], e))), e
+    _k8_checks(F, dev, rng)
     for c in (8, 12):
         s = cv.random_scalars(WIDTH, seed=c, device=dev)
         K = -(-(S.max_bits + 1) // c)
@@ -310,6 +340,9 @@ def _weierstrass_checks(dev, rng, params):
                             cuda_curve.proj_add_plain(Wc, *halves, mask=m)),
             "K5": (cuda_curve.proj_double_k(Wc, *a[:3], 5), cuda_curve.proj_double_k_plain(Wc, *a[:3], 5)),
             "K6": (cuda_curve.proj_double(Wc, *a[:3]), cuda_curve.proj_double_plain(Wc, *a[:3])),
+            **{f"K6 W={w}": (cuda_curve.proj_double(Wc, *[x[:, :w] for x in halves[:3]]),
+                             cuda_curve.proj_double_plain(Wc, *[x[:, :w] for x in halves[:3]]))
+               for w in K6_WIDTHS},
             "K7": (cuda_curve.proj_add_mixed(Wc, *a[:5], inf),
                    cuda_curve.proj_add_mixed_plain(Wc, *a[:5], inf)),
         }
@@ -399,9 +432,7 @@ def test_kernels_match_plain_twins(dev):
                            cuda_codec.montmul_rows_plain(FE, codec, x, y)), codec
     x, y = _elems(dev, rng, rows=22), _elems(dev, rng, rows=22)
     assert torch.equal(cuda_mul.montmul(FE, x, y), FE.montmul_plain(x, y))
-    for e in (0, 1, 5, FE.p - 2):
-        assert torch.equal(FE.fully_reduce(cuda_mul.exp_const(FE, x[:, :64], e)),
-                           FE.fully_reduce(FE.exp_const_plain(x[:, :64], e))), e
+    _k8_checks(FE, dev, rng)
     for c in (6, 11):
         s = ed.random_scalars(WIDTH, seed=c, device=dev)
         K = -(-(ed.scalar.bits + 1) // c)

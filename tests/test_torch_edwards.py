@@ -2,7 +2,8 @@
 
 * Field core (K0): a pure-Python model of the kernels' words (the load,
   32-bit CIOS rounds, the tail round for R = 2^264 and 2^396, and Pallas's
-  carry-aware load and add) against ``montmul_plain`` on every field shape; ``exp_const``,
+  carry-aware load and add) against ``montmul_plain`` on every field shape,
+  and of K8's op list and warp product on 30-bit digits against x^e mod p; ``exp_const``,
   ``inverse`` and ``batch_inverse`` against JAX ``MontgomeryFp``, limb for
   limb (the same algorithms, hence the same representatives).
 * K9's twin (``signed_digits``) against ``simple_digits_pallas(...,
@@ -46,6 +47,7 @@ from msm_zprize_tpu_torch import _build
 from msm_zprize_tpu_torch.curves import cuda_edwards
 from msm_zprize_tpu_torch.curves import params as port_params
 from msm_zprize_tpu_torch.curves.edwards import EdwardsOps, ExtPoints
+from msm_zprize_tpu_torch.fields import cuda_mul
 from msm_zprize_tpu_torch.fields.fp import make_field
 from msm_zprize_tpu_torch.fields.scalar import signed_digits
 from msm_zprize_tpu_torch.parallel.api import TwistedEdwards
@@ -120,6 +122,59 @@ def _f_add(a: int, b: int, p: int, nw: int, carry: bool) -> int:
     return _cond_sub_hi(s % (1 << (32 * nw)), s >> (32 * nw) if carry else 0, 2 * p, nw)
 
 
+_DIGIT = (1 << 30) - 1
+
+
+def _warp_relax(col: list) -> list:
+    """csrc/montmul.cu::warp_relax on every lane: column t's three 30-bit
+    pieces go to digits t, t + 1, t + 2, one more split of their sums."""
+    pc = lambda t, s: (col[t] >> (30 * s)) & _DIGIT if t >= 0 else 0
+    d = [pc(t, 0) + pc(t - 1, 1) + pc(t - 2, 2) for t in range(32)]
+    assert max(d) < 1 << 32
+    return [(d[t] & _DIGIT) + ((d[t - 1] >> 30) if t else 0) for t in range(32)]
+
+
+def _warp_mul(a: list, b: list, nd: int, p_d: list, pn_d: list) -> list:
+    """csrc/montmul.cu::warp_mul: 32 lanes, digit t on lane t (0 from nd up),
+    a shuffle from lane t - j < 0 wrapping to lane 32 + t - j."""
+    cols = [sum(b[j] * a[(t - j) % 32] for j in range(nd)) for t in range(32)]
+    e = _warp_relax(cols)
+    mc = [sum(pn_d[j] * e[(t - j) % 32] for j in range(nd) if j <= t) if t < nd else 0
+          for t in range(32)]
+    m = [v if t < nd else 0 for t, v in enumerate(_warp_relax(mc))]
+    cols = [e[t] + sum(p_d[j] * m[(t - j) % 32] for j in range(nd)) for t in range(32)]
+    assert max(cols) < 1 << 64
+    d = _warp_relax(cols)
+    carry = any(d[:nd])
+    return [d[t + nd] + (t == 0 and carry) if t < nd else 0 for t in range(32)]
+
+
+def _k8_model(F, nw: int, v: int, e: int) -> int:
+    """K8 on one lane: the op list of ``cuda_mul.exp_chain`` on 30-bit digits
+    in R' = 2^(30 nd), entered by a product with R'^2 / R and left by one
+    with R mod p; every digit stays below 2^30 + 3 and every value below
+    2p. Returns the stored value."""
+    nd = -(-32 * nw // 30)
+    rc, p = 1 << (30 * nd), F.p
+    dig = lambda c: [(c >> (30 * q)) & _DIGIT for q in range(nd)] + [0] * (32 - nd)
+    val = lambda d: sum(x << (30 * q) for q, x in enumerate(d))
+    p_d, pn_d = dig(p), dig(-pow(p, -1, rc) % rc)
+    ops = cuda_mul.exp_chain(e)
+    if not ops:
+        return F.mont_one
+    cur, slots = _warp_mul(dig(v), dig(rc * rc * pow(F.R, -1, p) % p), nd, p_d, pn_d), {}
+    for op in ops:
+        kind, t = op >> 6, op & 31
+        if kind == cuda_mul.MUL:
+            cur = _warp_mul(cur, cur if t == cuda_mul.CUR else slots[t], nd, p_d, pn_d)
+            assert val(cur) < 2 * p and max(cur) < (1 << 30) + 3
+        elif kind == cuda_mul.SAVE:
+            slots[t] = cur
+        else:
+            cur = slots[t]
+    return val(_warp_mul(cur, dig(F.mont_one), nd, p_d, pn_d))
+
+
 def test_field_core_and_inverse_match_jax():
     """The kernels' words (csrc/field.cuh), modelled in Python, on every
     field shape: the CIOS rounds and tail round after the load equal
@@ -130,7 +185,11 @@ def test_field_core_and_inverse_match_jax():
     the carry-free load and add of Fp22 (the other n = 22 shape) are wrong
     on exactly those inputs. Each field takes its own shape ID, and a field
     no shape fits is refused; exp_const, inverse and batch_inverse equal the
-    JAX package's limb for limb."""
+    JAX package's limb for limb. K8's chain (``cuda_mul.exp_chain``: the
+    fewest products of sliding windows up to 5 bits) and its warp product
+    on 30-bit digits (``_k8_model``) give x^e mod p below 2p on every shape,
+    for inputs up to 4p - 1 and e up to 2^384 - 1, with the products the
+    chain counts."""
     shapes = ((BLS12_377.modulus, 12, 0, False), (P, 8, 8, False),
               (BLS12_381.modulus, 12, 12, False), (PALLAS.modulus, 8, 8, True))
     for p, nw, tail, carry in shapes:
@@ -162,6 +221,15 @@ def test_field_core_and_inverse_match_jax():
         crossing = [(a, b) for a, b in zip(aa, bb) if (a + b) >> (32 * nw)]
         assert bool(crossing) == carry, nw
         assert all(_f_add(a, b, p, nw, False) % p != (a + b) % p for a, b in crossing)
+        # K8: x^e = (x R^-1)^e R mod p from the load's value (Pallas folds 4p - 1)
+        r_inv = pow(F.R, -1, p)
+        for e in (0, 1, 2, 17, p - 2, _ints(5, 1 << 350, 1, nbytes=44)[0], (1 << 384) - 1):
+            assert len(cuda_mul.exp_chain(e)) <= 768, e
+            for v in (0, 1, p - 1, 4 * p - 1)[(e > 17) * 2:]:
+                got = _k8_model(F, nw, _load(v, p, nw, carry), e)
+                assert got < 2 * p and got % p == pow(v * r_inv, e, p) * F.R % p, (nw, e, v)
+        ops = cuda_mul.exp_chain(p - 2)
+        assert cuda_mul.exp_products(ops) < (p - 2).bit_length() + bin(p - 2).count("1"), nw
     # BLS12-381 (n = 33) and Pallas (n = 22 as this field, but 4p > 2^256)
     # take shapes of their own; a field of n = 22 whose 2p exceeds 8 words
     # has none
