@@ -32,10 +32,13 @@ non-zero and no result line is printed):
    from 16,384 lanes up with its code flushed from the L2; masked (on no
    MSM path) at the widest and at W = 1. The other timed calls replay one
    input set, which stays in the 50 MB L2 below ~45k lanes; per-MSM sums
-   come from ``profile_msm``. K8 (one warp a lane) runs at W = 1, 4 and
-   64 and at e = 1, with its own measured product cost (e = p - 2 less
-   e = 1, over its chain's products; not a bound) and its bound on the
-   products x^e needs; K6 (K5's group kernel at k = 1) at the subgroup
+   come from ``profile_msm``. K2 runs at c = 8, 12 and the path's c, at W
+   = 1, 1,000 and 2^16, without and with the infinity mask, bit for bit
+   against the twin, and is timed with the mask at 2^16 and at 2^20 (c =
+   13, the window size there: a row of its own). K8 (one warp a lane)
+   runs at W = 1, 4 and 64 and at e = 1, with its own measured product
+   cost (e = p - 2 less e = 1, over its chain's products; not a bound) and
+   its bound on the products x^e needs; K6 (K5's group kernel at k = 1) at the subgroup
    check's 256 lanes on every storage. K5's, K11's (at W = 1) and K12's
    lines give their latency floors: dependent product levels times one
    thread's product latency, which K8's probe measures (x^e by binary
@@ -183,8 +186,9 @@ def _cold_ms(torch, fn, operands, reps=REPS, rounds=5) -> float:
 
 def _sass_sizes(bindir: Path, lib: Path) -> dict:
     """SASS instructions and local-memory loads and stores (LDL, STL) of each
-    curve kernel of the built library, Weierstrass and Edwards, by demangled
-    name (``cuobjdump -sass`` and ``cu++filt`` of the toolkit in ``bindir``)."""
+    curve kernel of the built library, Weierstrass and Edwards, and of K2,
+    by demangled name (``cuobjdump -sass`` and ``cu++filt`` of
+    the toolkit in ``bindir``)."""
     out = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(lib)], capture_output=True,
                          text=True, check=True, timeout=300).stdout
     sizes, name = {}, None
@@ -195,7 +199,7 @@ def _sass_sizes(bindir: Path, lib: Path) -> dict:
         elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
             sizes[name][0] += 1
             sizes[name][1] += bool(re.search(r"\b(LDL|STL)", line))
-    names = [k for k in sizes if "3msm3wei" in k or "3msm2ed" in k]
+    names = [k for k in sizes if "3msm3wei" in k or "3msm2ed" in k or "glv_digits" in k]
     plain = subprocess.run([str(bindir / "cu++filt")], input="\n".join(names), capture_output=True,
                            text=True, check=True, timeout=60).stdout.splitlines()
     return {p.replace("msm::", "").replace("wei::", ""): sizes[k] for k, p in zip(names, plain)}
@@ -222,7 +226,9 @@ def main() -> None:
     from msm_zprize_tpu_torch.msm.engine import slot_count
     from msm_zprize_tpu_torch.parallel.api import TwistedEdwards, Weierstrass
     from msm_zprize_tpu_torch.submission import compute_msm
-    from msm_zprize_tpu_torch.testing.bounds import HBM_BYTES_PER_S, bound_ms, imad_per_s, mont_imads
+    from msm_zprize_tpu_torch.testing.bounds import (
+        HBM_BYTES_PER_S, bound_ms, glv_digits_work, imad_per_s, mont_imads,
+    )
     from msm_zprize_tpu_torch.testing.points import (
         ed_expected_msm, ed_naive_msm, ed_points_with_logs, expected_msm, naive_msm,
         points_with_logs,
@@ -380,6 +386,41 @@ def main() -> None:
               f"probe at e = 0): {probe_ms * 1e3:.3f} us")
         return probe_ms
 
+    def k2_rows(cv, tag, run, cg):
+        """K2 on one curve's scalars against the twin, bit for bit, at c = 8,
+        12 and the path's c, at W = 1, 1,000 and 2^16, without and with an
+        infinity mask (the first lanes 0, 1, q - 1 and q // 2); then, with
+        the mask glv_prep passes, timed at the path's shape at 2^16 (its
+        row) and at 2^20 with c = 13 (the window size there; its own row)."""
+        Sg, q = cv.scalar, cv.params.order
+        edges = torch.as_tensor(Sg.pack([0, 1, q - 1, q // 2]), device=dev)
+        cs, worst = sorted({8, 12, cg}), 0
+        for c_ in cs:
+            K_ = default_windows(Sg.max_bits, c_)
+            for width in (1, 1000, N):
+                scal = cv.random_scalars(width, seed=SEED + width, device=dev)
+                scal[:, :4] = edges[:, :width]
+                for inf in (None, flags(2 * width)):
+                    worst = max(worst, raw_err(cuda_scalar.glv_digits(Sg, scal, c_, K_, inf),
+                                               cuda_scalar.glv_digits_plain(Sg, scal, c_, K_, inf)))
+        if worst:
+            raise AssertionError(f"K2 on {tag} is not bit-identical to its plain twin: {worst}")
+        print(f"[2 kernel] K2 glv_digits_{tag}: bit-identical to the twin at c = {cs}, "
+              f"W = 1, 1000, {N}, without and with the mask")
+        for key, width, c_ in ((f"k2_{tag}", N, cg), (f"k2_2e20_{tag}", 1 << 20, 13)):
+            K_ = default_windows(Sg.max_bits, c_)
+            scal = cv.random_scalars(width, seed=SEED, device=dev)
+            inf = flags(2 * width)
+            kernel_row(key, f"glv_digits_{tag}" + ("" if width == N else "_2e20"), "K2", "glv_digits.cu",
+                       "msm_zprize_tpu/fields/pallas_scalar.py:279", run, cuda_scalar.KERNEL,
+                       raw_err(cuda_scalar.glv_digits(Sg, scal, c_, K_, inf),
+                               cuda_scalar.glv_digits_plain(Sg, scal, c_, K_, inf)),
+                       _graph_ms(torch, lambda: cuda_scalar.glv_digits(Sg, scal, c_, K_, inf)),
+                       _cuda_ms(torch, lambda: cuda_scalar.glv_digits_plain(Sg, scal, c_, K_, inf),
+                                PLAIN_REPS),
+                       f"N={width}, c={c_}, K={K_}, masked", *glv_digits_work(width, Sg.n, K_))
+            del scal, inf
+
     def weierstrass_rows(cv, tag, units, runs):
         """K1, K2, K8 and K3-K7 of one Weierstrass curve at the shapes of its
         2^16 MSM, on each storage in ``units`` ((ops, curve unit, run of its
@@ -418,20 +459,8 @@ def main() -> None:
                              cuda_curve._groups(Wc, kernel),
                              cuda_curve._group_for(Wc, kernel, args[0].shape[-1]), chain, product_ms,
                              cold=kernel == cuda_curve.K3)
-        scal = cv.random_scalars(N, seed=SEED, device=dev)
-        gm, gs = cuda_scalar.glv_digits(Sg, scal, cg, Kg)
-        wm, ws = cuda_scalar.glv_digits_plain(Sg, scal, cg, Kg)
-        if not (torch.equal(gm, wm) and torch.equal(gs, ws)):
-            raise AssertionError(f"K2 glv_digits on {tag} is not bit-identical to its plain twin")
-        muls = 2 * Sg.n * len(Sg.m0) + 4 * sum(
-            1 for i in range(Sg.n_half + 1) for j in range(Sg.n_half) if i + j < Sg.n_acc)
-        kernel_row(f"k2_{tag}", f"glv_digits_{tag}", "K2", "glv_digits.cu",
-                   "msm_zprize_tpu/fields/pallas_scalar.py:279", runs["proj"], cuda_scalar.KERNEL,
-                   max((gm - wm).abs().max().item(), (gs - ws).abs().max().item()),
-                   _graph_ms(torch, lambda: cuda_scalar.glv_digits(Sg, scal, cg, Kg)),
-                   _cuda_ms(torch, lambda: cuda_scalar.glv_digits_plain(Sg, scal, cg, Kg), PLAIN_REPS),
-                   f"N={N}, c={cg}, K={Kg}", (Sg.n + 4 * Kg) * 4 * N, muls * N)
-        del x, y, scal, gm, gs, wm, ws
+        k2_rows(cv, tag, runs["proj"], cg)
+        del x, y
 
         for Wc, unit, run in units:
             codec = getattr(Wc, "codec", None)

@@ -4,8 +4,10 @@ K2 replaces ``msm_zprize_tpu/fields/pallas_scalar.py::glv_digits_pallas``
 (GLV decomposition + signed windowing, the BLS12-377 path); K9 replaces
 ``simple_digits_pallas`` (signed windowing alone, the Edwards path). CUDA
 tensors launch the kernels; CPU tensors run the plain twins
-``glv_digits_plain`` (``GlvScalar.decompose`` + ``signed_digits``) and
-``signed_digits``. Kernel and twin return bit-identical digit planes.
+``glv_digits_plain`` (``GlvScalar.decompose`` + ``signed_digits``, then
+glv_prep's infinity mask) and ``signed_digits``. Kernel and twin return
+bit-identical digit planes. K2 computes on 32-bit words what the twin
+computes on 12-bit limbs; ``_const_words`` packs its constants.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from .. import _build
@@ -24,56 +25,80 @@ __all__ = ["glv_digits", "glv_digits_plain", "simple_digits"]
 
 KERNEL = "k2_glv_digits"
 K9 = "k9_simple_digits"
+MW = VW = 5  # 32-bit words of m_i and of |v_ij| in GlvConsts (csrc/glv_digits.cu)
 
 
-def glv_digits_plain(S: GlvScalar, scalars: torch.Tensor, c: int, K: int):
+def glv_digits_plain(S: GlvScalar, scalars: torch.Tensor, c: int, K: int, inf=None):
     sg0, u0, sg1, u1 = S.decompose(scalars)
     m0, s0 = signed_digits(u0, c, K, S.w, scalar_sign=sg0)
     m1, s1 = signed_digits(u1, c, K, S.w, scalar_sign=sg1)
-    return torch.cat([m0, m1], dim=-1), torch.cat([s0, s1], dim=-1)
+    mags = torch.cat([m0, m1], dim=-1)
+    if inf is not None:  # points at infinity never contribute: zero their digits
+        mags = torch.where(inf.bool()[None, :], 0, mags)
+    return mags, torch.cat([s0, s1], dim=-1)
 
 
-@functools.cache
-def _consts(S: GlvScalar) -> ctypes.Array:
-    """GlvConsts words (csrc/glv_digits.cu) from the scalar module, packed
-    once per module."""
+def _words(limbs, w: int, count: int) -> list[int]:
+    """A little-endian limb array as ``count`` 32-bit words."""
+    value = sum(int(v) << (w * i) for i, v in enumerate(limbs))
+    if value >> (32 * count):
+        raise ValueError(f"a K2 constant is wider than {count} words")
+    return [(value >> (32 * i)) & 0xFFFFFFFF for i in range(count)]
+
+
+def _const_words(S: GlvScalar) -> list[int]:
+    """GlvConsts (csrc/glv_digits.cu) as 32-bit words: the limb sizes, the
+    four terms' signs, m0 and m1 in MW words each, then |v| of the terms
+    a-d in VW words each."""
     if S.w != 12 or len(S.m0) != len(S.m1):
         raise ValueError("the K2 kernel supports 12-bit limbs only")
     words = [S.n, S.n_half, S.n_acc, S.K0_limbs, len(S.m0)]
     terms = S.terms()
-    words += [sg for _, sg, _ in terms]
-    words += [int(v) for v in S.m0] + [int(v) for v in S.m1]
+    words += [sg & 0xFFFFFFFF for _, sg, _ in terms]
+    words += _words(S.m0, S.w, MW) + _words(S.m1, S.w, MW)
     for _, _, name in terms:
         v = S.sv[name][1]
         if len(v) > S.n_half:
             raise ValueError(f"basis row {name} wider than n_half limbs")
-        words += [int(x) for x in np.pad(v, (0, S.n_half - len(v)))]
+        words += _words(v, S.w, VW)
+    return words
+
+
+@functools.cache
+def _consts(S: GlvScalar) -> ctypes.Array:
+    """``_const_words`` for the C entry, packed once per module; the
+    compiled kernel must take as many words (its sizes are the module's)."""
+    words = _const_words(S)
     lib, _ = _build.library()
     if len(words) != lib.msm_glv_const_words():
         raise ValueError(
             "scalar module sizes differ from the compiled K2 kernel "
             f"(n={S.n}, n_half={S.n_half}, n_acc={S.n_acc}, K0={S.K0_limbs}, n_m={len(S.m0)})"
         )
-    return _build.ints(words, ctypes.c_int32)
+    return _build.ints(words, ctypes.c_uint32)
 
 
-def glv_digits(S: GlvScalar, scalars: torch.Tensor, c: int, K: int):
-    """scalars: (n, N) canonical limbs in [0, q). Returns (mags, signs),
-    each (K, 2N) int32: GLV half 0 in columns [0, N), half 1 in [N, 2N)."""
-    if _build.on_cpu(scalars):
-        return glv_digits_plain(S, scalars, c, K)
+def glv_digits(S: GlvScalar, scalars: torch.Tensor, c: int, K: int, inf=None):
+    """scalars: (n, N) canonical limbs in [0, q); inf: None or the (2N,)
+    int32 infinity flags of the GLV-expanded points. Returns (mags, signs),
+    each (K, 2N) int32: GLV half 0 in columns [0, N), half 1 in [N, 2N);
+    magnitudes 0 in the columns whose flag is set (signs untouched)."""
+    operands = (scalars,) if inf is None else (scalars, inf)
+    if _build.on_cpu(*operands):
+        return glv_digits_plain(S, scalars, c, K, inf)
     N = scalars.shape[-1]
     lds = [_build.rows(scalars, S.n, N, "scalars")]
+    if inf is not None:
+        _build.flags(inf, 2 * N, "inf")
     words = _consts(S)
     mags = torch.empty((K, 2 * N), dtype=torch.int32, device=scalars.device)
     signs = torch.empty_like(mags)
     if N == 0:
         return mags, signs
     lib, _ = _build.library()
-    code = lib.msm_glv_digits(
-        _build.ptrs(scalars, mags, signs), _build.ints(lds), N, c, K, words,
-        _build.stream_of(scalars),
-    )
+    ptrs = (ctypes.c_uint64 * 4)(*_build.ptrs(scalars, mags, signs),
+                                 0 if inf is None else inf.data_ptr())
+    code = lib.msm_glv_digits(ptrs, _build.ints(lds), N, c, K, words, _build.stream_of(scalars))
     _build.check(code, KERNEL)
     COUNTS[KERNEL] += 1
     return mags, signs

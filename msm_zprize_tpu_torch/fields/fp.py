@@ -56,33 +56,44 @@ def _normalize(cols: torch.Tensor, w: int, relax_rounds: int = 0):
     Instead of a w-bit carry chain over all m limbs (the JAX conv path's
     ``_scan_carry``), columns are summed into 4-limb int64 groups and the
     chain runs over m/4 groups: far fewer tensor ops for the same exact
-    result."""
+    result. CPU tensors run the same int64 ops in numpy, whose per-op cost
+    is a fraction of torch's on the few lanes the CPU paths carry."""
     m = cols.shape[0]
-    if cols.device.type == "cpu" and 0 < cols[0].numel() <= _INT_LANES:
+    on_cpu = cols.device.type == "cpu"
+    if on_cpu and 0 < cols[0].numel() <= _INT_LANES:
         return _normalize_ints(cols, w)
     mask = (1 << w) - 1
-    c = cols.to(torch.int64)
+    if on_cpu:
+        c = cols.numpy().astype(np.int64)
+        zeros = lambda shape: np.zeros(shape, np.int64)
+        shifts = np.arange(0, _GROUP * w, w, dtype=np.int64)
+    else:
+        c = cols.to(torch.int64)
+        zeros = c.new_zeros
+        shifts = torch.arange(0, _GROUP * w, w, device=c.device)
     pad = -m % _GROUP
     if pad:
-        c = torch.cat([c, c.new_zeros((pad,) + c.shape[1:])])
-    top = c.new_zeros(c.shape[1:])
+        c = (np.concatenate if on_cpu else torch.cat)([c, zeros((pad,) + tuple(c.shape[1:]))])
+    top = zeros(c.shape[1:])
     for _ in range(relax_rounds):
         hi = c >> w
         c = c & mask
         c[1:] += hi[:-1]
         top = top + hi[-1]
-    shifts = torch.arange(0, _GROUP * w, w, device=c.device).reshape((1, _GROUP) + (1,) * (c.dim() - 1))
-    groups = (c.reshape((-1, _GROUP) + c.shape[1:]) << shifts).sum(dim=1)
+    shifts = shifts.reshape((1, _GROUP) + (1,) * (c.ndim - 1))
+    groups = (c.reshape((-1, _GROUP) + c.shape[1:]) << shifts).sum(axis=1)
     gmask = (1 << (_GROUP * w)) - 1
-    carry = top.new_zeros(top.shape)
+    carry = zeros(top.shape)
     for j in range(groups.shape[0]):
         t = groups[j] + carry
         groups[j] = t & gmask
         carry = t >> (_GROUP * w)
-    digits = ((groups.unsqueeze(1) >> shifts) & mask).reshape(c.shape)[:m]
+    digits = ((groups[:, None] >> shifts) & mask).reshape(c.shape)[:m]
     carry = carry + top
     if pad:  # the padding limbs hold the low part of the carry out of limb m-1
         carry = (groups[-1] >> (w * (_GROUP - pad))) + (carry << (w * pad))
+    if on_cpu:
+        return torch.from_numpy(digits.astype(np.int32)), torch.from_numpy(carry)
     return digits.to(DTYPE), carry
 
 
@@ -101,10 +112,17 @@ def _normalize_ints(cols: torch.Tensor, w: int):
 
 
 def _polymul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Exact int64 product columns of (n, B) x (n, B) -> (2n-1, B). Few
-    lanes: one outer product and one index_add (fewest tensor ops); many
-    lanes: n shifted row products (least memory traffic)."""
+    """Exact int64 product columns of (n, B) x (n, B) -> (2n-1, B). CPU: n
+    shifted row products in numpy (a fraction of torch's per-op cost); few
+    CUDA lanes: one outer product and one index_add (fewest tensor ops);
+    many: n shifted row products (least memory traffic)."""
     n, B = x.shape
+    if x.device.type == "cpu":
+        xn, yn = x.numpy().astype(np.int64), y.numpy().astype(np.int64)
+        out = np.zeros((2 * n - 1, B), np.int64)
+        for i in range(n):
+            out[i : i + n] += xn[i] * yn
+        return torch.from_numpy(out)
     x64, y64 = x.to(torch.int64), y.to(torch.int64)
     cols = torch.zeros((2 * n - 1, B), dtype=torch.int64, device=x.device)
     if B <= 256:
@@ -113,6 +131,14 @@ def _polymul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     for i in range(n):
         cols[i : i + n] += x64[i] * y64
     return cols
+
+
+def _batch_shape(x: torch.Tensor, y: torch.Tensor):
+    """The broadcast batch shape of two limb tensors (``torch.broadcast_shapes``
+    costs tens of microseconds a call; equal shapes, the common case, skip it)."""
+    if x.shape == y.shape:
+        return x.shape[1:]
+    return torch.broadcast_shapes(x.shape[1:], y.shape[1:])
 
 
 def _toeplitz(const: np.ndarray, rows: int) -> np.ndarray:
@@ -248,7 +274,7 @@ class MontgomeryFp:
         ``_INT_LANES`` CPU lanes the same integer comes from Python ints
         (``_montmul_ints``)."""
         n, w = self.n, self.w
-        batch = torch.broadcast_shapes(x.shape[1:], y.shape[1:])
+        batch = _batch_shape(x, y)
         xf = x.expand((n,) + batch).reshape(n, -1)
         yf = y.expand((n,) + batch).reshape(n, -1)
         if xf.device.type == "cpu" and 0 < xf.shape[1] <= _INT_LANES:
@@ -295,7 +321,7 @@ class MontgomeryFp:
         kernel on CUDA tensors, ``montmul_plain`` on CPU tensors."""
         from .cuda_mul import montmul
 
-        batch = torch.broadcast_shapes(x.shape[1:], y.shape[1:])
+        batch = _batch_shape(x, y)
         shape = (self.n,) + tuple(batch)
         xf = x.expand(shape).reshape(self.n, -1).contiguous()
         yf = y.expand(shape).reshape(self.n, -1).contiguous()

@@ -3,7 +3,8 @@
 Mirror of ``msm_zprize_tpu/msm/batched_affine.py``:
 
 * ``glv_prep``: beta * x for the endomorphism (K1) and the fused GLV
-  decomposition + signed windowing of both scalar halves (K2);
+  decomposition + signed windowing of both scalar halves, with the digits
+  of points at infinity zeroed (K2);
 * ``mode="projective"`` (the default): the padded engine with the fused
   level-1 kernel (K3) and complete projective adds (K4), then
   ``finalize_projective_buckets``: log-depth reduction and Horner (K4, K5);
@@ -52,9 +53,8 @@ def glv_prep(W: WeierstrassOps, S: GlvScalar, scalars, points: AffinePoints, c: 
     L = 1 << (c - 1)
     endo = W.endomorphism(points)
     pts2 = AffinePoints(*(torch.cat([a, b], dim=-1) for a, b in zip(points, endo)))
-    mags, signs = glv_digits(S, scalars, c, K)
-    # points at infinity never contribute: zero their digits
-    mags = torch.where(pts2.inf.bool()[None, :], 0, mags)
+    # points at infinity never contribute: K2 zeroes their digits
+    mags, signs = glv_digits(S, scalars, c, K, inf=pts2.inf)
     return pts2, mags, signs, K, L
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import subprocess
 
-__all__ = ["HBM_BYTES_PER_S", "imad_per_s", "mont_imads", "bound_ms", "curve_work"]
+__all__ = ["HBM_BYTES_PER_S", "imad_per_s", "mont_imads", "bound_ms", "curve_work", "glv_digits_work"]
 
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_CLOCK_PER_SM = 64
@@ -62,3 +62,14 @@ def curve_work(kernel: str, rows: int, mm: int, width: int, arg: int = 0,
     }
     words, flags, products = table[name]
     return (words + flags) * 4 * width, products * mm * lanes
+
+
+def glv_digits_work(N: int, n: int, K: int) -> tuple[int, int]:
+    """(bytes, multiply-adds) of one K2 launch over N scalars of n limbs
+    into K windows, as glv_prep runs it: the limbs and the 2N infinity flags
+    read, the two (K, 2N) planes written; the multiply-adds of its word
+    design (``csrc/glv_digits.cu``): two full 8 x 5-word products (each
+    32x32->64 product two, low and high half) and four products modulo
+    2^160 (the 15 word products below word 5; the 5 that land in word 4
+    need their low halves only)."""
+    return (n + 2 + 4 * K) * 4 * N, (2 * 2 * 8 * 5 + 4 * (2 * 15 - 5)) * N

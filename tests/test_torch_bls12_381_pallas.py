@@ -6,9 +6,9 @@
   ``tests/test_torch_edwards.py`` with the other shapes', and their plain
   field ops against the JAX field in ``tests/test_torch_fields.py``.
 * K2's twin against ``glv_digits_pallas(..., interpret=True)`` on both
-  curves' scalars: bit-exact; the compiled K2 kernel's sizes
+  curves' scalars: bit-exact; the compiled K2 kernel's limb sizes
   (``csrc/glv_digits.cu``) are both curves' scalar sizes, and ``_consts``
-  packs the word count the kernel takes.
+  packs the word count the kernel takes (its constants in 32-bit words).
 * K3-K7's twins on both curves: K4 against ``CurveKernels(...,
   interpret=True)``, every one against the JAX ``WeierstrassOps`` jnp ops,
   on curve points with random Z, identity, doubling and cancelling lanes
@@ -101,8 +101,8 @@ def _check_params():
 def _check_k2(monkeypatch):
     src = (Path(_build.CSRC) / "glv_digits.cu").read_text()
     baked = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
-             for k in ("NS", "NH", "NACC", "K0L", "NM")}
-    words = 5 + 4 + 2 * baked["NM"] + 4 * baked["NH"]  # GlvConsts: dims, sg, m0, m1, v
+             for k in ("NS", "NH", "NACC", "K0L", "NM", "MW", "VW")}
+    words = 5 + 4 + 2 * baked.pop("MW") + 4 * baked.pop("VW")  # GlvConsts: dims, sg, m0, m1, v
     fake = types.SimpleNamespace(msm_glv_const_words=lambda: words)  # the kernel's count
     rng = np.random.default_rng(2)
     for label, J in CURVES.items():

@@ -14,7 +14,9 @@ with n = 33, Pallas with n = 22 and 4p > 2^256) the same way. K8 (one warp
 a lane) on all four field shapes at W = 1, 3, 64 and 1000 on strided limb
 rows, at ten exponents from 0 to a random 350-bit one, with 0, 1, p - 1
 and 4p - 1 among its inputs, and its one-thread probe; K6 (K5's group
-instance at k = 1) on every storage at W = 1, 256 and 1000. Tolerance: K2
+instance at k = 1) on every storage at W = 1, 256 and 1000; K2 at c = 8 and
+12, W = 1, 1000, 4099 and 2^16, without and with an infinity mask, the
+scalars 0, 1, q - 1 and q // 2 among its inputs. Tolerance: K2
 and K9 bit-exact; K1 limb-exact (the Montgomery product is one integer)
 where 4p < 2^(32 NW), mod p on Pallas (also on inputs in [2^256, 4p), which
 its kernel reduces first); K3-K8 and K10-K12 exact mod p, with operands at
@@ -316,11 +318,19 @@ def _weierstrass_checks(dev, rng, params):
     with pytest.raises(ValueError):
         cuda_mul.montmul(F, x.to(torch.int64), y)
     _k8_checks(F, dev, rng)
+    s_edges = torch.as_tensor(S.pack([0, 1, S.q - 1, S.q // 2]), device=dev)
     for c in (8, 12):
-        s = cv.random_scalars(WIDTH, seed=c, device=dev)
         K = -(-(S.max_bits + 1) // c)
-        got, want = glv_digits(S, s, c, K), glv_digits_plain(S, s, c, K)
-        assert all(torch.equal(g, w) for g, w in zip(got, want)), c
+        for width in (1, 1000, WIDTH, 1 << 16):
+            s = cv.random_scalars(width, seed=c, device=dev)
+            s[:, :4] = s_edges[:, :width]
+            mask = torch.as_tensor(np.random.default_rng(width).integers(0, 2, size=2 * width, dtype=np.int32),
+                                   device=dev)
+            for inf in (None, mask):
+                got, want = glv_digits(S, s, c, K, inf), glv_digits_plain(S, s, c, K, inf)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), (c, width, inf is None)
+    with pytest.raises(ValueError):
+        glv_digits(S, s, 12, K, inf=mask.bool())
 
     f = [torch.as_tensor(rng.integers(0, 2, size=WIDTH, dtype=np.int32), device=dev) for _ in range(4)]
     m, inf = f[0], f[1]
