@@ -30,8 +30,10 @@
 //     digits carrying sign 0 included; tests/test_torch_scalar.py holds a
 //     Python model of this word algorithm against both.
 //   * Digits stream out of a 64-bit bit buffer refilled one word at a time
-//     (a few instructions a window for any run-time c in 1..20), not from a
-//     sweep over 11 limbs a window.
+//     (a few instructions a window for any run-time c in 1..MAX_C), not from
+//     a sweep over 11 limbs a window. A refill comes when fewer than c bits
+//     are left, so at most c - 1 <= 29 bits sit below the 32 it adds: the
+//     buffer never holds more than 61, and at least c after the refill.
 // Two threads a scalar, one a GLV half: the two sit 16 lanes apart in one
 // warp; each computes one u_i and takes the other's by a warp shuffle, then
 // forms its own s_i and writes its own K windows. (One thread a scalar,
@@ -52,6 +54,13 @@
 #include "field.cuh"
 
 namespace msm {
+
+// The widest window both entries take (fields/cuda_scalar.py::MAX_C): the
+// reference recoding (scalar.py::signed_digits) holds window + carry <= 2^c
+// and 2^c itself in int32, exact for c <= 30. Both kernels compute in 32
+// bits: K2's buffer is above; K9 shifts a limb left by the bits it has so
+// far, at most c - 1 <= 29.
+constexpr int MAX_C = 30;
 
 // The limb sizes of the Python GlvScalar this kernel is built for (the entry
 // refuses others).
@@ -287,7 +296,7 @@ simple_digits_kernel(const int32_t* __restrict__ s, int64_t lds, int n, int64_t 
 extern "C" int msm_simple_digits(const uint64_t* ptrs, const int64_t* lds, int64_t N, int n,
                                  int c, int K, void* stream) {
   using namespace msm;
-  if (n < 1 || c < 1 || c > 20 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || c < 1 || c > MAX_C || K < 1) return static_cast<int>(cudaErrorInvalidValue);
   simple_digits_kernel<<<grid_for(N), BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const int32_t*>(ptrs[0]), lds[0], n, N, c, K,
       reinterpret_cast<int32_t*>(ptrs[1]), reinterpret_cast<int32_t*>(ptrs[2]));
@@ -303,7 +312,7 @@ extern "C" int msm_glv_digits(const uint64_t* ptrs, const int64_t* lds, int64_t 
   GlvConsts gc;
   std::memcpy(&gc, consts, sizeof gc);
   if (gc.dims[0] != NS || gc.dims[1] != NH || gc.dims[2] != NACC ||
-      gc.dims[3] != K0L || gc.dims[4] != NM || c < 1 || c > 20 || K < 1) {
+      gc.dims[3] != K0L || gc.dims[4] != NM || c < 1 || c > MAX_C || K < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t threads = (N + WARP_SCALARS - 1) / WARP_SCALARS * 32;

@@ -6,8 +6,11 @@ struct-of-limb-arrays (each coordinate ``(n, *batch)`` int32, Montgomery
 form), the identity is (0, 1, 1, 0), and the strongly unified hwcd-3 add
 needs no masks. The curve ops dispatch through the kernel wrappers of
 ``curves/cuda_edwards.py``: the CUDA kernels K10-K12 for CUDA tensors,
-their plain twins for CPU tensors. ``scale_dyn`` and the subgroup ops are
-ROADMAP queue 1, item 10.
+their plain twins for CPU tensors. The scalar multiples (ROADMAP queue 1,
+item 10) are double-and-add on those kernels: ``scale_dyn`` takes a runtime
+scalar bit by bit (the masked K11 selects, K12 at k = 1 doubles), and
+``scale_const``, the subgroup check and cofactor clearing take a static
+scalar (K11 where a bit is set, K12 between).
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..fields import limbs as L
 from ..fields.fp import MontgomeryFp, make_field
-from . import cuda_edwards
+from . import cuda_edwards, scale
 from .params import EdwardsParams
 
 __all__ = ["ExtPoints", "EdwardsOps"]
@@ -97,6 +101,31 @@ class EdwardsOps:
 
     def double(self, P: ExtPoints) -> ExtPoints:
         return self.double_k(P, 1)
+
+    # ---- scalar multiples ---------------------------------------------------------
+
+    def scale_const(self, k: int, P: ExtPoints) -> ExtPoints:
+        """k * P for a static Python int k (double-and-add, K11 and K12)."""
+        return scale.scale_static(k, P, self.add, self.double, lambda: self._zeros_like(P))
+
+    def scale_dyn(self, k_limbs: torch.Tensor, P: ExtPoints) -> ExtPoints:
+        """k * P for a RUNTIME scalar k: (n_k, *batch) canonical limbs, every
+        one of its n_k * w bits, with no early exit. Each bit is one masked
+        add (the masked K11, whose pass-through lanes are the JAX package's
+        select) and one doubling of Q (K12 at k = 1)."""
+        return scale.scale_bits(L.bit_planes(k_limbs, self.F.w), P, self.add, self.double,
+                                lambda: self._zeros_like(P))
+
+    def _zeros_like(self, P: ExtPoints) -> ExtPoints:
+        return self.zeros(*P.X.shape[1:], device=P.X.device)
+
+    def is_in_subgroup(self, P: ExtPoints):
+        """order * P == identity, on the device."""
+        return self.is_zero(self.scale_const(self.params.order, P))
+
+    def to_subgroup(self, P: ExtPoints) -> ExtPoints:
+        """Cofactor clearing: cofactor * P."""
+        return self.scale_const(self.params.cofactor, P)
 
     # ---- predicates -------------------------------------------------------------
 

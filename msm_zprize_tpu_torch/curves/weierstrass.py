@@ -6,8 +6,11 @@ points (each coordinate ``(n, *batch)`` int32, Montgomery form, values
 The hot curve ops dispatch through the kernel wrappers of
 ``curves/cuda_curve.py``: the CUDA kernels K3-K7 for CUDA tensors, their
 plain twins for CPU tensors; ``batch_add``, ``to_affine`` and the
-predicates are field ops (K1 and K8 on CUDA). ``proj_scale_dyn`` and the
-subgroup ops are ROADMAP queue 1, item 10.
+predicates are field ops (K1 and K8 on CUDA). The scalar multiples (ROADMAP
+queue 1, item 10) are double-and-add on those kernels: ``proj_scale_dyn``
+takes a runtime scalar bit by bit (K4m selects, K6 doubles), and the
+subgroup check and cofactor clearing take the static order and cofactor
+through ``proj_scale_const`` (K4 where a bit is set, K6 between).
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..fields import limbs as L
 from ..fields.fp import MontgomeryFp, make_field
-from . import cuda_curve
+from . import cuda_curve, scale
 from .params import WeierstrassParams
 
 __all__ = ["AffinePoints", "ProjectivePoints", "WeierstrassOps", "select"]
@@ -141,17 +145,20 @@ class WeierstrassOps:
 
     def proj_scale_const(self, k: int, P: ProjectivePoints) -> ProjectivePoints:
         """k * P for a static Python int k (double-and-add, K4 and K6)."""
-        R = None
-        Q = P
-        while k > 0:
-            if k & 1:
-                R = Q if R is None else self.proj_add(R, Q)
-            k >>= 1
-            if k:
-                Q = self.proj_double(Q)
-        if R is None:
-            return self.proj_zeros(*P.X.shape[1:], device=P.X.device)
-        return R
+        return scale.scale_static(k, P, self.proj_add, self.proj_double, lambda: self._proj_zeros_like(P))
+
+    def proj_scale_dyn(self, k_limbs: torch.Tensor, P: ProjectivePoints) -> ProjectivePoints:
+        """k * P for a RUNTIME scalar k: (n_k, *batch) canonical limbs.
+
+        The JAX package's masked double-and-add, LSB-first over all n_k * w
+        bits with no early exit: each bit is one masked add (K4m, whose
+        pass-through lanes are JAX's ``select(bit, proj_add(acc, Q), acc)``)
+        and one doubling of Q (K6)."""
+        return scale.scale_bits(L.bit_planes(k_limbs, self.F.w), P, self.proj_add, self.proj_double,
+                                lambda: self._proj_zeros_like(P))
+
+    def _proj_zeros_like(self, P: ProjectivePoints) -> ProjectivePoints:
+        return self.proj_zeros(*P.X.shape[1:], device=P.X.device)
 
     def aff_pair_add(self, x1, y1, s1, v1, x2, y2, s2, v2) -> ProjectivePoints:
         """Complete add of two signed affine slots: operand i is
@@ -163,6 +170,17 @@ class WeierstrassOps:
         return AffinePoints(self.F.montmul(P.x, self.F.const(self.beta_mont, P.x)), P.y, P.inf)
 
     # ---- predicates -------------------------------------------------------------
+
+    def proj_is_zero(self, P: ProjectivePoints):
+        return self.F.is_zero(P.Z)
+
+    def is_in_subgroup(self, P: ProjectivePoints):
+        """order * P == identity, on the device."""
+        return self.proj_is_zero(self.proj_scale_const(self.params.order, P))
+
+    def to_subgroup(self, P: ProjectivePoints) -> ProjectivePoints:
+        """Cofactor clearing: cofactor * P."""
+        return self.proj_scale_const(self.params.cofactor, P)
 
     def proj_eq(self, P: ProjectivePoints, Q: ProjectivePoints):
         """Equality across representatives (cross-multiplied)."""

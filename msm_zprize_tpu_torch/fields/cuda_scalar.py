@@ -21,11 +21,19 @@ from .. import _build
 from ..counters import COUNTS
 from .scalar import GlvScalar, signed_digits
 
-__all__ = ["glv_digits", "glv_digits_plain", "simple_digits"]
+__all__ = ["MAX_C", "glv_digits", "glv_digits_plain", "simple_digits"]
 
 KERNEL = "k2_glv_digits"
 K9 = "k9_simple_digits"
 MW = VW = 5  # 32-bit words of m_i and of |v_ij| in GlvConsts (csrc/glv_digits.cu)
+# The widest window c (csrc/glv_digits.cu::MAX_C): signed_digits, here and in
+# the JAX package, holds window + carry <= 2^c and 2^c in int32.
+MAX_C = 30
+
+
+def _check_window(c: int) -> None:
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"window size c={c} outside 1..{MAX_C}: the digit recoding holds 2^c in int32")
 
 
 def glv_digits_plain(S: GlvScalar, scalars: torch.Tensor, c: int, K: int, inf=None):
@@ -82,7 +90,9 @@ def glv_digits(S: GlvScalar, scalars: torch.Tensor, c: int, K: int, inf=None):
     """scalars: (n, N) canonical limbs in [0, q); inf: None or the (2N,)
     int32 infinity flags of the GLV-expanded points. Returns (mags, signs),
     each (K, 2N) int32: GLV half 0 in columns [0, N), half 1 in [N, 2N);
-    magnitudes 0 in the columns whose flag is set (signs untouched)."""
+    magnitudes 0 in the columns whose flag is set (signs untouched).
+    c must lie in 1..MAX_C."""
+    _check_window(c)
     operands = (scalars,) if inf is None else (scalars, inf)
     if _build.on_cpu(*operands):
         return glv_digits_plain(S, scalars, c, K, inf)
@@ -107,7 +117,8 @@ def glv_digits(S: GlvScalar, scalars: torch.Tensor, c: int, K: int, inf=None):
 def simple_digits(scalars: torch.Tensor, c: int, K: int, w: int = 12):
     """scalars: (n, N) canonical w-bit limbs. Returns (mags, signs), each
     (K, N) int32: signed c-bit digits, magnitudes in [0, 2^(c-1)], a zero
-    digit with sign 0."""
+    digit with sign 0. c must lie in 1..MAX_C."""
+    _check_window(c)
     if _build.on_cpu(scalars):
         return signed_digits(scalars, c, K, w)
     if w != 12:

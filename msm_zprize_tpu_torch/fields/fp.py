@@ -13,7 +13,9 @@ Every op here is plain PyTorch and runs on the device of its inputs, except
 ``montmul``/``montsquare`` and ``exp_const``, which dispatch through the K1
 and K8 wrappers (``fields/cuda_mul.py``): the CUDA kernels for CUDA
 tensors, the plain ``montmul_plain`` and ``exp_const_plain`` below for CPU
-tensors. ``inverse`` and ``batch_inverse`` are built on those two.
+tensors. ``inverse``, ``batch_inverse``, ``left_shift`` and ``exp_dyn`` (a
+runtime exponent: a loop of K1 products, as the JAX package's is a scan of
+plain products with no Pallas kernel) are built on those two.
 """
 
 from __future__ import annotations
@@ -330,6 +332,10 @@ class MontgomeryFp:
     def montsquare(self, x):
         return self.montmul(x, x)
 
+    def left_shift(self, x, k: int):
+        """x * 2^k, Montgomery form kept: one K1 product by 2^k R mod p."""
+        return self.montmul(x, self.const((1 << k) * self.R % self.p, x))
+
     def to_montgomery(self, x):
         return self.montmul(x, self.const(self.R2, x))
 
@@ -367,6 +373,18 @@ class MontgomeryFp:
             for _ in range(window):
                 acc = self.montmul_plain(acc, acc)
             acc = self.montmul_plain(acc, tbl[d])
+        return acc
+
+    def exp_dyn(self, x, e: torch.Tensor):
+        """x^e for a RUNTIME exponent e: (n_e, *batch) canonical limbs.
+
+        The JAX package's masked square-and-multiply, MSB-first over all
+        n_e * w bits with no early exit: each bit is a K1 square, a K1
+        product and a select (2 n_e w K1 launches on the card)."""
+        acc = self.ones_mont(*torch.broadcast_shapes(x.shape[1:], e.shape[1:]), device=x.device)
+        for bit in L.bit_planes(e, self.w).flip(0).bool():  # MSB first
+            acc = self.montsquare(acc)
+            acc = torch.where(bit, self.montmul(acc, x), acc)
         return acc
 
     def inverse(self, x):

@@ -29,9 +29,8 @@ __all__ = [
     "sub_mod_pow2",
     "negate_mod_pow2",
     "extract_bits",
-    "bytes_to_limbs",
-    "bytes_to_ints",
-    "random_uniform_limbs",
+    "bit_planes",
+    "column",
 ]
 
 DTYPE = torch.int32
@@ -145,57 +144,18 @@ def negate_mod_pow2(x, w: int, n: int) -> torch.Tensor:
     return sub_mod_pow2(torch.zeros_like(x[:n]), x, w, n)
 
 
-def bytes_to_limbs(data: np.ndarray, scheme: LimbScheme) -> np.ndarray:
-    """(B, nbytes) uint8 little-endian -> (n, B) int32 canonical limbs."""
-    B, nbytes = data.shape
-    out = np.zeros((scheme.n, B), dtype=np.int32)
-    for i in range(scheme.n):
-        lo_bit = scheme.w * i
-        acc = np.zeros(B, dtype=np.int64)
-        for j in range(lo_bit // 8, min((lo_bit + scheme.w + 7) // 8, nbytes)):
-            shift = 8 * j - lo_bit
-            b = data[:, j].astype(np.int64)
-            acc += (b << shift) if shift >= 0 else (b >> -shift)
-        out[i] = (acc & scheme.mask).astype(np.int32)
-    return out
+def column(limbs: np.ndarray, ref: torch.Tensor) -> torch.Tensor:
+    """A limb constant as an (m, 1, ..) column on ref's device, broadcastable
+    against ref's (n, *batch)."""
+    return torch.as_tensor(limbs, device=ref.device).reshape((-1,) + (1,) * (ref.dim() - 1))
 
 
-def bytes_to_ints(data: np.ndarray) -> list[int]:
-    """(B, nbytes) uint8 little-endian -> Python ints."""
-    return [int.from_bytes(row.tobytes(), "little") for row in data]
-
-
-def _less_than(limbs: np.ndarray, bound_limbs: np.ndarray) -> np.ndarray:
-    """Lexicographic compare from the top limb: limbs < bound, per column."""
-    lt = np.zeros(limbs.shape[1], dtype=bool)
-    decided = np.zeros(limbs.shape[1], dtype=bool)
-    for i in range(limbs.shape[0] - 1, -1, -1):
-        bi = int(bound_limbs[i])
-        lt |= ~decided & (limbs[i] < bi)
-        decided |= limbs[i] != bi
-    return lt
-
-
-def random_uniform_limbs(rng: np.random.Generator, bound: int, count: int,
-                         scheme: LimbScheme) -> np.ndarray:
-    """(n, count) canonical limbs uniform in [0, bound) by rejection sampling
-    of bit_length(bound)-bit strings: the same draws, in the same order, as
-    ``msm_zprize_tpu.fields.bytes_codec.random_uniform_limbs``, so one seed
-    gives the same limbs in both packages."""
-    bits = bound.bit_length()
-    nbytes = (bits + 7) // 8
-    top_mask = (1 << (bits - 8 * (nbytes - 1))) - 1 if bits % 8 else 0xFF
-    bound_limbs = np.array(scheme.to_limbs(bound), dtype=np.int64)
-    out = np.zeros((scheme.n, count), dtype=np.int32)
-    todo = np.arange(count)
-    while todo.size:
-        draw = rng.integers(0, 256, size=(todo.size, nbytes), dtype=np.uint8)
-        draw[:, -1] &= top_mask
-        limbs = bytes_to_limbs(draw, scheme)
-        ok = _less_than(limbs, bound_limbs)
-        out[:, todo[ok]] = limbs[:, ok]
-        todo = todo[~ok]
-    return out
+def bit_planes(limbs: torch.Tensor, w: int) -> torch.Tensor:
+    """Every bit of canonical (n, *batch) limbs, LSB first: (n * w, *batch)
+    int32 in {0, 1}."""
+    idx = torch.arange(limbs.shape[0] * w, device=limbs.device)
+    shifts = (idx % w).to(limbs.dtype).reshape((-1,) + (1,) * (limbs.dim() - 1))
+    return (limbs[idx // w] >> shifts) & 1
 
 
 def extract_bits(limbs: torch.Tensor, offset: int, count: int, w: int) -> torch.Tensor:

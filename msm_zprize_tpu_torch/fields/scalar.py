@@ -1,11 +1,13 @@
 """Scalar modules: GLV decomposition and signed-digit windowing, in torch.
 
 Mirror of ``msm_zprize_tpu/fields/scalar.py`` (``SimpleScalar``,
-``GlvScalar.decompose``, ``signed_digits``, ``make_glv_scalar``): the same
-12-bit limb algorithm in int32, so results are bit-identical to the JAX
-package. ``decompose`` + ``signed_digits`` together are the plain twin of
-the K2 kernel (``fields/cuda_scalar.py``). Scalars are plain (non-Montgomery)
-limb tensors of shape ``(n, *batch)``.
+``GlvScalar.decompose``, ``GlvScalarSpecial``, ``GlvScalarSpecialMsm``,
+``signed_digits``, ``make_glv_scalar``): the same 12-bit limb algorithm in
+int32, so results are bit-identical to the JAX package. ``GlvScalar.decompose``
++ ``signed_digits`` together are the plain twin of the K2 kernel
+(``fields/cuda_scalar.py``); the special split by Barrett division has no
+kernel in the JAX package and runs as torch ops on the scalars' device.
+Scalars are plain (non-Montgomery) limb tensors of shape ``(n, *batch)``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,10 @@ import torch
 from . import limbs as L
 from .limbs import DTYPE, LimbScheme
 
-__all__ = ["SimpleScalar", "GlvScalar", "glv_basis", "signed_digits", "make_glv_scalar"]
+__all__ = [
+    "SimpleScalar", "GlvScalar", "GlvScalarSpecial", "GlvScalarSpecialMsm", "glv_basis",
+    "signed_digits", "make_glv_scalar",
+]
 
 
 def glv_basis(q: int, lambda_: int):
@@ -110,17 +115,12 @@ class GlvScalar(SimpleScalar):
         (sign0, u0, sign1, u1): signs (B,) int32 in {0, 1}, u_i (n_half, B)
         canonical limbs, s == (-1)^sign0 u0 + lambda (-1)^sign1 u1 (mod q)."""
         w, n_acc = self.w, self.n_acc
-        nb = s.dim() - 1
-
-        def col(a: np.ndarray) -> torch.Tensor:
-            return torch.as_tensor(a, device=s.device).reshape((-1,) + (1,) * nb)
-
         u = [
-            L.mul_shift_floor(s, col(m), w, self.K0_limbs, self.n_half + 1)
+            L.mul_shift_floor(s, L.column(m, s), w, self.K0_limbs, self.n_half + 1)
             for m in (self.m0, self.m1)
         ]
         prods = [
-            (sg, L.mul_low(u[ui], col(self.sv[name][1]), w, n_acc))
+            (sg, L.mul_low(u[ui], L.column(self.sv[name][1], s), w, n_acc))
             for ui, sg, name in self.terms()
         ]
         s_acc = L.carry_chain(s, w, n_acc)
@@ -141,6 +141,93 @@ class GlvScalar(SimpleScalar):
         sign0, a0 = sign_abs(s0)
         sign1, a1 = sign_abs(s1)
         return sign0, a0, sign1, a1
+
+    def unpack_half(self, arr) -> list[int]:
+        return L.unpack(arr, LimbScheme(self.w, self.n_half))
+
+
+def _one(ref: torch.Tensor) -> torch.Tensor:
+    """The limbs of 1 in ref's shape."""
+    one = torch.zeros_like(ref)
+    one[0] = 1
+    return one
+
+
+class GlvScalarSpecial(SimpleScalar):
+    """GLV split by Barrett DIVISION for lambda ~ sqrt(q) (BLS12-377/381):
+
+        s1 = floor(s / lambda)  (Barrett: (s m) >> K, m = floor(2^K / lambda),
+                                 then two conditional corrections)
+        s0 = s - s1 lambda
+
+    so s = s0 + lambda s1 exactly, s0 < lambda. ``decompose_no_msb`` also
+    forces s0 < 2^(half_bits - 1) by the flip s0 -> lambda - s0,
+    s1 -> s1 + 1 with a sign flag."""
+
+    def __init__(self, q: int, lambda_: int, w: int = 12):
+        super().__init__(q, w)
+        if abs(2 * lambda_.bit_length() - q.bit_length()) > 3:
+            raise ValueError("the special GLV split needs lambda ~ sqrt(q)")
+        self.lambda_ = lambda_
+        self.half_bits = max(lambda_.bit_length(), q.bit_length() - lambda_.bit_length() + 1)
+        self.n_half = -(-self.half_bits // w)
+        # m = floor(2^K / lambda), K whole limbs covering bits(q) + w (error <= 2)
+        self.K_limbs = -(-(q.bit_length() + w) // w)
+        m = (1 << (self.K_limbs * w)) // lambda_
+        self.m = np.array(LimbScheme(w, max(-(-m.bit_length() // w), 1)).to_limbs(m), dtype=np.int32)
+        # n_half + 1 limbs: the corrections subtract lambda over the
+        # (n_half + 1)-limb remainder, limb for limb
+        self.l_limbs = np.array(LimbScheme(w, self.n_half + 1).to_limbs(lambda_), dtype=np.int32)
+
+    def decompose(self, s: torch.Tensor):
+        """s: (n, B) canonical limbs in [0, q). Returns (u0, u1), canonical
+        (n_half, B), with s == u0 + lambda u1 and u0 < lambda."""
+        w, n_h = self.w, self.n_half
+        lam = L.column(self.l_limbs, s)
+        q1 = L.mul_shift_floor(s, L.column(self.m, s), w, self.K_limbs, n_h + 1)
+        r = L.sub_mod_pow2(s, L.mul_low(q1, lam, w, n_h + 1), w, n_h + 1)  # r < ~3 lambda
+        one = _one(q1)
+        for _ in range(2):  # the quotient is at most 2 short
+            d = L.sub_mod_pow2(r, lam, w, n_h + 1)
+            ge = ((d[n_h] >> (w - 1)) & 1) == 0  # no borrow out of the top: r >= lambda
+            r = torch.where(ge, d, r)
+            q1 = torch.where(ge, L.add_mod_pow2(q1, one, w, n_h + 1), q1)
+        return r[:n_h], q1[:n_h]
+
+    def decompose_no_msb(self, s: torch.Tensor):
+        """(sign0, u0, u1) with s == (-1)^sign0 u0 + lambda u1 and
+        u0 < 2^(half_bits - 1)."""
+        u0, u1 = self.decompose(s)
+        w, n_h = self.w, self.n_half
+        big = L.extract_bits(u0, self.half_bits - 1, 1, w) != 0
+        u0 = torch.where(big, L.sub_mod_pow2(L.column(self.l_limbs, u0), u0, w, n_h), u0)
+        u1 = torch.where(big, L.add_mod_pow2(u1, _one(u1), w, n_h), u1)
+        return big.to(DTYPE), u0, u1
+
+
+class GlvScalarSpecialMsm(SimpleScalar):
+    """The special split with ``GlvScalar``'s decompose surface (two signed
+    halves), so ``msm_batched_affine`` runs a lambda ~ sqrt(q) curve on it:
+    s = (-1)^g0 u0 + lambda (-1)^g1 u1 (mod q), u0 < 2^(half_bits - 1)."""
+
+    def __init__(self, q: int, lambda_: int, w: int = 12):
+        super().__init__(q, w)
+        # divide by the ~sqrt(q) eigenvalue: a curve may store its conjugate
+        # q - lambda (BLS12-377 does), then u1's sign flips
+        lam_eff = min(lambda_, q - lambda_)
+        self._neg1 = lam_eff != lambda_
+        self._sp = GlvScalarSpecial(q, lam_eff, w)
+        self.lambda_ = lambda_
+        self.max_bits = self._sp.half_bits
+        self.n_half = self._sp.n_half
+
+    def decompose(self, s: torch.Tensor):
+        g0, u0, u1 = self._sp.decompose_no_msb(s)
+        g1 = torch.ones_like(g0) if self._neg1 else torch.zeros_like(g0)
+        return g0, u0, g1, u1
+
+    def pack_half(self, values) -> np.ndarray:
+        return L.pack(list(values), LimbScheme(self.w, self.n_half))
 
     def unpack_half(self, arr) -> list[int]:
         return L.unpack(arr, LimbScheme(self.w, self.n_half))

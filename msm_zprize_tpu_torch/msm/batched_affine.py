@@ -4,7 +4,10 @@ Mirror of ``msm_zprize_tpu/msm/batched_affine.py``:
 
 * ``glv_prep``: beta * x for the endomorphism (K1) and the fused GLV
   decomposition + signed windowing of both scalar halves, with the digits
-  of points at infinity zeroed (K2);
+  of points at infinity zeroed (K2 for ``GlvScalar``; any other scalar
+  module, the special split ``GlvScalarSpecialMsm`` among them, takes its
+  own ``decompose`` and ``signed_digits`` as torch ops, as in the JAX
+  package, which has no kernel for them);
 * ``mode="projective"`` (the default): the padded engine with the fused
   level-1 kernel (K3) and complete projective adds (K4), then
   ``finalize_projective_buckets``: log-depth reduction and Horner (K4, K5);
@@ -28,7 +31,7 @@ import torch
 
 from ..curves.weierstrass import AffinePoints, ProjectivePoints, WeierstrassOps
 from ..fields.cuda_scalar import glv_digits
-from ..fields.scalar import GlvScalar
+from ..fields.scalar import GlvScalar, signed_digits
 from . import engine
 from .common import default_windows, window_size
 
@@ -53,9 +56,15 @@ def glv_prep(W: WeierstrassOps, S: GlvScalar, scalars, points: AffinePoints, c: 
     L = 1 << (c - 1)
     endo = W.endomorphism(points)
     pts2 = AffinePoints(*(torch.cat([a, b], dim=-1) for a, b in zip(points, endo)))
-    # points at infinity never contribute: K2 zeroes their digits
-    mags, signs = glv_digits(S, scalars, c, K, inf=pts2.inf)
-    return pts2, mags, signs, K, L
+    if isinstance(S, GlvScalar):
+        # points at infinity never contribute: K2 zeroes their digits
+        mags, signs = glv_digits(S, scalars, c, K, inf=pts2.inf)
+        return pts2, mags, signs, K, L
+    sg0, u0, sg1, u1 = S.decompose(scalars)
+    m0, s0 = signed_digits(u0, c, K, S.w, scalar_sign=sg0)
+    m1, s1 = signed_digits(u1, c, K, S.w, scalar_sign=sg1)
+    mags = torch.where(pts2.inf.bool()[None, :], 0, torch.cat([m0, m1], dim=-1))
+    return pts2, mags, torch.cat([s0, s1], dim=-1), K, L
 
 
 class _ProjAcc:

@@ -366,8 +366,10 @@ def accumulate_buckets_padded(
             comb = pair_add(acc, shifted)
             acc = tuple(torch.where(can, cmb, a) for cmb, a in zip(comb, acc))
             step *= 2
-        # ids the digits never produced (l >= max_id + 1) get the identity
-        src_pos = torch.clamp(vid * S, max=L - 1)
+        # ids the digits never produced (l >= max_id + 1) get the identity;
+        # l * S runs past int32 for those (up to L^2 where no digit is set),
+        # so it is formed in int64 and clamped: every gathered index is valid
+        src_pos = torch.clamp(vid.long() * S, max=L - 1)
         flat_pos = (src_pos + rowsL).reshape(-1)
         n_logical = (max_id + 1)[:, None]
         out = []

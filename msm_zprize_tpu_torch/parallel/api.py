@@ -25,7 +25,7 @@ from ..curves.params import EdwardsParams, WeierstrassParams
 from ..curves.weierstrass import AffinePoints, ProjectivePoints, WeierstrassOps
 from ..curves.weierstrass51 import Fma51WeierstrassOps, PackedWeierstrassOps
 from ..fields.codec import FMA51_BOUND
-from ..fields.limbs import random_uniform_limbs
+from ..fields.bytes_codec import random_uniform_limbs
 from ..fields.scalar import SimpleScalar, make_glv_scalar
 from ..msm.basic import msm_basic_edwards, msm_basic_projective
 from ..msm.batched_affine import msm_batched_affine

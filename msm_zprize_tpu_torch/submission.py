@@ -21,7 +21,7 @@ import functools
 import numpy as np
 
 from .curves.params import BLS12_377, WeierstrassParams
-from .fields.limbs import bytes_to_ints
+from .fields.bytes_codec import bytes_to_ints
 from .parallel.api import DEVICE, Weierstrass
 
 __all__ = ["compute_msm", "make_compute_msm"]
@@ -50,6 +50,14 @@ def _to_int_points(points) -> list:
     return out
 
 
+def _pick_msm(curve, pts: list):
+    """The same-point check: repeated finite points choose the safe msm (the
+    projective modes are complete either way; the affine mode's unsafe adds
+    need distinct points)."""
+    finite = [q for q in pts if q is not None]
+    return curve.msm if len(set(finite)) != len(finite) else curve.msm_unsafe
+
+
 @functools.cache
 def make_compute_msm(params: WeierstrassParams = BLS12_377, device=DEVICE):
     """A compute_msm closure for one curve, its tensors on ``device``."""
@@ -63,11 +71,7 @@ def make_compute_msm(params: WeierstrassParams = BLS12_377, device=DEVICE):
         pts = _to_int_points(points)
         s = curve.scalars_from_ints(_to_int_scalars(scalars), device)
         p = curve.points_from_ints(pts, device)
-        # same-point check -> the safe msm (the projective modes are complete
-        # either way; the affine mode's unsafe adds need distinct points)
-        finite = [q for q in pts if q is not None]
-        run = curve.msm if len(set(finite)) != len(finite) else curve.msm_unsafe
-        return curve.result_to_int(run(s, p, mode=mode))
+        return curve.result_to_int(_pick_msm(curve, pts)(s, p, mode=mode))
 
     return compute_msm
 

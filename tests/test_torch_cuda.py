@@ -14,9 +14,12 @@ with n = 33, Pallas with n = 22 and 4p > 2^256) the same way. K8 (one warp
 a lane) on all four field shapes at W = 1, 3, 64 and 1000 on strided limb
 rows, at ten exponents from 0 to a random 350-bit one, with 0, 1, p - 1
 and 4p - 1 among its inputs, and its one-thread probe; K6 (K5's group
-instance at k = 1) on every storage at W = 1, 256 and 1000; K2 at c = 8 and
-12, W = 1, 1000, 4099 and 2^16, without and with an infinity mask, the
-scalars 0, 1, q - 1 and q // 2 among its inputs. Tolerance: K2
+instance at k = 1) on every storage at W = 1, 256 and 1000; K2 at c = 8,
+12, 21, 22 and 30 (the widest, ``cuda_scalar.MAX_C``), W = 1, 1000, 4099
+and 2^16, without and with an infinity mask, the scalars 0, 1, q - 1 and
+q // 2 among its inputs, and K9 at c = 6, 11, 21, 22 and 30 at the same
+widths; c = 31 refused by both wrappers; a BLS12-377 and an
+ed-on-bls12-377 MSM at N = 16 and c = 22 against the known logs. Tolerance: K2
 and K9 bit-exact; K1 limb-exact (the Montgomery product is one integer)
 where 4p < 2^(32 NW), mod p on Pallas (also on inputs in [2^256, 4p), which
 its kernel reduces first); K3-K8 and K10-K12 exact mod p, with operands at
@@ -53,7 +56,7 @@ from msm_zprize_tpu_torch.counters import COUNTS
 from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
 from msm_zprize_tpu_torch.curves.params import BLS12_377, BLS12_381, ED_ON_BLS12_377, PALLAS
 from msm_zprize_tpu_torch.curves.weierstrass import ProjectivePoints
-from msm_zprize_tpu_torch.fields import cuda_codec, cuda_mul
+from msm_zprize_tpu_torch.fields import cuda_codec, cuda_mul, cuda_scalar
 from msm_zprize_tpu_torch.fields.codec import Fma51Codec, PackedCodec
 from msm_zprize_tpu_torch.fields.cuda_scalar import glv_digits, glv_digits_plain, simple_digits
 from msm_zprize_tpu_torch.fields.scalar import signed_digits
@@ -319,7 +322,7 @@ def _weierstrass_checks(dev, rng, params):
         cuda_mul.montmul(F, x.to(torch.int64), y)
     _k8_checks(F, dev, rng)
     s_edges = torch.as_tensor(S.pack([0, 1, S.q - 1, S.q // 2]), device=dev)
-    for c in (8, 12):
+    for c in (8, 12, 21, 22, cuda_scalar.MAX_C):
         K = -(-(S.max_bits + 1) // c)
         for width in (1, 1000, WIDTH, 1 << 16):
             s = cv.random_scalars(width, seed=c, device=dev)
@@ -331,6 +334,8 @@ def _weierstrass_checks(dev, rng, params):
                 assert all(torch.equal(g, w) for g, w in zip(got, want)), (c, width, inf is None)
     with pytest.raises(ValueError):
         glv_digits(S, s, 12, K, inf=mask.bool())
+    with pytest.raises(ValueError, match="1..30"):  # refused before any launch
+        glv_digits(S, s, cuda_scalar.MAX_C + 1, K)
 
     f = [torch.as_tensor(rng.integers(0, 2, size=WIDTH, dtype=np.int32), device=dev) for _ in range(4)]
     m, inf = f[0], f[1]
@@ -443,11 +448,14 @@ def test_kernels_match_plain_twins(dev):
     x, y = _elems(dev, rng, rows=22), _elems(dev, rng, rows=22)
     assert torch.equal(cuda_mul.montmul(FE, x, y), FE.montmul_plain(x, y))
     _k8_checks(FE, dev, rng)
-    for c in (6, 11):
-        s = ed.random_scalars(WIDTH, seed=c, device=dev)
+    for c in (6, 11, 21, 22, cuda_scalar.MAX_C):
         K = -(-(ed.scalar.bits + 1) // c)
-        got, want = simple_digits(s, c, K), signed_digits(s, c, K, 12)
-        assert all(torch.equal(g, w) for g, w in zip(got, want)), c
+        for width in (1, 1000, WIDTH, 1 << 16):
+            s = ed.random_scalars(width, seed=c, device=dev)
+            got, want = simple_digits(s, c, K), signed_digits(s, c, K, 12)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (c, width)
+    with pytest.raises(ValueError, match="1..30"):
+        simple_digits(s, cuda_scalar.MAX_C + 1, K)
     a = [_elems(dev, rng, rows=22) for _ in range(8)]
     slot = _elems(dev, rng, width=2 * WIDTH, rows=22)
     m = f[0]
@@ -485,6 +493,15 @@ def test_kernels_match_plain_twins(dev):
                 "k12_ed_double_k"):
         assert COUNTS[key] > before.get(key, 0), key
     assert ed.result_to_int(ed.msm(scalars, points, mode="basic")) == want
+    # windows past 20 bits (L = 2^21 buckets): N = 16 MSMs at c = 22 on both
+    # curves; the Edwards one has windows with few distinct digits, where the
+    # padded engine's fold indexes past int32 before clamping
+    for cv, params, with_logs, expected in ((curve, BLS12_377, points_with_logs, expected_msm),
+                                            (ed, ED_ON_BLS12_377, ed_points_with_logs, ed_expected_msm)):
+        pts16, logs16 = with_logs(params, 16, seed=22)
+        s16 = cv.random_scalars(16, seed=22, device=dev)
+        got = cv.result_to_int(cv.msm(s16, cv.points_from_ints(pts16, dev), c=22))
+        assert got == expected(params, cv.scalar.unpack(s16.cpu()), logs16), params.label
     assert bool(E.is_on_curve(ed.random_points_fast(N, seed=3, device=dev)).all())
 
     # ed-on-bls12-377 and Pallas both have n = 22: their launches take

@@ -10,8 +10,10 @@ exact equality. The JAX engine runs under ``jax.jit``: on integers it
 compiles in about a second, where eager dispatch compiles op by op and
 takes several times longer. The cases cover the compact (top-T) and the
 global residual rounds, virtual-bucket spreading, window chunks, both the
-fused and the prepared level 1, and the two-key sort that takes over when
-(id, sign, position) no longer fits one int32 key.
+fused and the prepared level 1, the two-key sort that takes over when
+(id, sign, position) no longer fits one int32 key, and a window with no
+digit set at L = 2^17 (spread factor S = L, so the fold's l * S exceeds
+int32).
 """
 
 from typing import NamedTuple
@@ -89,6 +91,7 @@ CASES = [
     (5, 64, 16, "uniform", False, 3, None),           # chunks not dividing K
     (5, 6144, 2048, "stride4", True, 1, "global"),    # > T buckets overflow
     (1, 65536, 16384, "uniform", True, 1, None),      # key > 31 bits: sort_by_bucket
+    (2, 16, 1 << 17, "sparse", True, 1, None),        # S = L: l * S past int32 in the fold
 ]
 
 
@@ -102,6 +105,7 @@ def test_accumulate_matches_jax_engine(monkeypatch):
             "all_equal": lambda: np.full((K, B), 3),
             "top_heavy": lambda: rng.integers(0, 3, (K, B)),
             "stride4": lambda: 4 * rng.integers(0, L // 4, (K, B)) + 1,
+            "sparse": lambda: np.stack([np.zeros(B, np.int64), rng.integers(0, 3, B)]),
         }[dist]().astype(np.int32)
         signs = np.where(digits == 0, 0, rng.integers(0, 2, (K, B))).astype(np.int32)
         vals = rng.integers(1, 1000, (B,)).astype(np.int32)
