@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's MSM paths end to end on one GPU: the
 BLS12-377 MSM in its four modes (the codec storage mode "packed" among
 them) and on projective inputs, the ed-on-bls12-377 twisted-Edwards MSM in
-its two modes, the device generator of random points, ``compute_msm``, and
-the BLS12-381 and Pallas MSMs (Pallas also on Fma51Codec rows, "fma51").
+its two modes, the device generator of random points, ``compute_msm``, the
+BLS12-381 and Pallas MSMs (Pallas also on Fma51Codec rows, "fma51"), and
+the sharded MSM on a one-rank mesh and on two ranks sharing the card.
 
     python3 chip_smoke.py
 
@@ -98,6 +99,19 @@ non-zero and no result line is printed):
     montmul, add and sub (and ``montmul_fma_model``); the bytes codec's
     round trip; and one 2^16 run of ``compute_msm``'s stages (decode, MSM,
     result) through ``submission.py``'s own helpers, beside one whole call.
+17. the sharded MSM over a ``torch.distributed`` mesh (``parallel/mesh.py``):
+    a one-rank NCCL mesh in this process (``make_mesh()`` on a file store
+    under ``build/``), BLS12-377 ``msm(mesh=...)`` and ed-on-bls12-377
+    ``msm(mesh=...)`` on the 2^16 points of phases 4 and 7 against the known
+    logs and the unsharded result, each with its launches and 2 warmups + 5
+    timed runs beside the unsharded path's; then the card's compute mode and
+    two rank processes sharing the card over gloo
+    (``parallel/launch.spawn``): BLS12-377 on ``make_mesh()``,
+    ``make_mesh2(1, 2)`` and ``make_mesh2(2, 1)``, ed-on-bls12-377 on
+    ``make_mesh()``, each rank's result against the known logs with, per
+    rank, its wall, the exchange's and the gather's bytes and times, its
+    launches by kernel (the combine's adds among K4's and K11's) and its
+    peak device memory; and ``compute_msm`` with ``mesh=`` at N = 2^12.
 
 Phase 2 holds the kernels of phases 13-14 too: K1, K2, K8 and K3-K7 on each
 curve's limbs, K13 and the K14 variants on each of its codec storages.
@@ -109,6 +123,7 @@ Nothing of JAX or of the JAX package is imported: the port stands alone.
 from __future__ import annotations
 
 import json
+import os
 import random
 import re
 import statistics
@@ -127,6 +142,8 @@ REPS, PLAIN_REPS = 20, 3  # back-to-back calls per timing: kernel, plain twin
 WIDE_CS = (21, 22, 30)  # windows past 20 bits, up to the widest K2 and K9 take
 C_WIDE, N_WIDE = 22, 16  # the wide-window MSMs: L = 2^21 buckets
 ED_DYN_RUN = "ed-on-bls12-377 scale_dyn 2^16 (252 bits)"  # the masked K11's path
+MESH_RANKS = 2  # processes sharing the one card in phase 17
+N_MESH_COMPUTE = 1 << 12  # compute_msm on the mesh: its int decode takes ~1.9 s at 2^16
 
 
 
@@ -232,6 +249,7 @@ def _sass_sizes(bindir: Path, lib: Path) -> dict:
 
 def main() -> None:
     import torch
+    import torch.distributed as dist
 
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -257,7 +275,9 @@ def main() -> None:
     from msm_zprize_tpu_torch.msm.batched_affine import msm_batched_affine
     from msm_zprize_tpu_torch.msm.common import default_windows, window_size
     from msm_zprize_tpu_torch.msm.engine import slot_count
+    from msm_zprize_tpu_torch.parallel import launch
     from msm_zprize_tpu_torch.parallel.api import TwistedEdwards, Weierstrass
+    from msm_zprize_tpu_torch.parallel.mesh import make_mesh
     from msm_zprize_tpu_torch.submission import _pick_msm, _to_int_points, _to_int_scalars, compute_msm
     from msm_zprize_tpu_torch.testing.bounds import (
         HBM_BYTES_PER_S, bound_ms, glv_digits_work, imad_per_s, mont_imads,
@@ -266,6 +286,7 @@ def main() -> None:
         ed_expected_msm, ed_naive_msm, ed_points_with_logs, expected_msm, naive_msm,
         points_with_logs,
     )
+    from msm_zprize_tpu_torch.testing import mesh_ranks
 
     if "jax" in sys.modules or "msm_zprize_tpu" in sys.modules:
         raise AssertionError("the port must import nothing of JAX or the JAX package")
@@ -1375,6 +1396,80 @@ def main() -> None:
           f"({share[1]:.1f} %), result {st[5]:.1f} ({share[2]:.1f} %), sum {sum(st):.1f}; a whole "
           f"compute_msm call, another run: {whole:.1f}")
     print(f"    phase 16 took {time.perf_counter() - t16:.1f} s")
+
+    # ---- 17. the sharded MSM over a torch.distributed mesh -----------------------------
+    # (a) one rank, NCCL, in this process: what the mesh path costs at d = 1;
+    # (b) two ranks sharing this card over gloo (NCCL refuses two ranks on one
+    # card), each a process of its own: the exchange and the combine's adds
+    t17 = time.perf_counter()
+    print("[17 mesh] the sharded MSM (parallel/mesh.py): a one-rank NCCL mesh in this process, "
+          f"then {MESH_RANKS} ranks on this card over gloo")
+    store = _build.BUILD_DIR / f"nccl_store_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        mesh1 = make_mesh()
+        for label, cv, params, expected in (("bls12-377", curve, BLS12_377, expected_msm),
+                                            ("ed-on-bls12-377", ed, ED_ON_BLS12_377, ed_expected_msm)):
+            path = mesh_ranks.CARD_PATHS[label]
+            _, pts_dev, logs_k = known[label]
+            scal17 = cv.random_scalars(N, seed=SEED + 17, device=dev)
+            want17 = expected(params, cv.scalar.unpack(scal17.cpu()), logs_k)
+            unsharded = cv.result_to_int(cv.msm(scal17, pts_dev))
+            if unsharded != want17:
+                raise AssertionError(f"{label}: the unsharded MSM disagrees with the known logs")
+            for what, run in (
+                ("msm(mesh=one-rank NCCL mesh)",
+                 lambda cv=cv, s=scal17, p=pts_dev: cv.msm(s, p, mesh=mesh1)),
+                ("msm (unsharded, the same inputs)", lambda cv=cv, s=scal17, p=pts_dev: cv.msm(s, p)),
+            ):
+                drive(f"{label} {what}", run, path, equals_known(f"{label} {what}", cv, want17))
+            counts = run_counts[f"{label} msm(mesh=one-rank NCCL mesh)"]
+            print(f"    {label} on the one-rank mesh: exchange {counts.get('exchange_bytes', 0)} B, "
+                  f"gather {counts.get('gather_bytes', 0)} B (an axis of size 1 exchanges nothing)")
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+    compute_mode = _smi("compute_mode")
+    print(f"    compute mode of the card: {compute_mode}")
+    if compute_mode != "Default":
+        raise AssertionError(f"the card's compute mode is {compute_mode}: it cannot host "
+                             f"{MESH_RANKS} rank processes")
+    pts_b, _, logs_b = known["bls12-377"]
+    pts_e17, _, logs_e17 = known["ed-on-bls12-377"]
+    scs_cm = curve.scalar.unpack(curve.random_scalars(N_MESH_COMPUTE, seed=SEED + 18, device="cpu"))
+    inputs = {"N": N, "seed": SEED + 17, "bls12-377": pts_b, "ed-on-bls12-377": pts_e17,
+              "compute_msm": (scs_cm, pts_b[:N_MESH_COMPUTE])}
+    want = {
+        "bls12-377": expected_msm(BLS12_377, curve.scalar.unpack(
+            curve.random_scalars(N, seed=SEED + 17, device="cpu")), logs_b),
+        "ed-on-bls12-377": ed_expected_msm(ED_ON_BLS12_377, ed.scalar.unpack(
+            ed.random_scalars(N, seed=SEED + 17, device="cpu")), logs_e17),
+        "compute_msm": expected_msm(BLS12_377, scs_cm, logs_b[:N_MESH_COMPUTE]),
+    }
+    t0 = time.perf_counter()
+    results = launch.spawn(mesh_ranks.card_ranks, MESH_RANKS, device="cuda", backend="gloo",
+                           args=(inputs,))
+    spawn_s = time.perf_counter() - t0
+    mesh_ranks.check_card_ranks(results, want)
+    print(f"    {MESH_RANKS} ranks (gloo, one card; {spawn_s:.1f} s with the processes' start and "
+          "their input conversion): every rank's every run equals the known-discrete-log result "
+          "and launched every kernel of its path; per rank, the counted run after one warm run "
+          f"(compute_msm at N = {N_MESH_COMPUTE}: one call with its decode) on {card}:")
+    for rank, res in enumerate(results):
+        for label, run in res.items():
+            if label == "foreign":
+                continue
+            c = run["counts"]
+            kernels = {k: v for k, v in sorted(c.items()) if k.startswith("k")}
+            peak = f"; peak device memory {run['peak_gib']:.2f} GiB" if "peak_gib" in run else ""
+            print(f"      rank {rank} {label}: {run['ms']:.1f} ms; exchange (all_to_all) "
+                  f"{int(c.get('exchange_bytes', 0))} B in {c.get('exchange_ms', 0.0):.2f} ms, gather "
+                  f"{int(c.get('gather_bytes', 0))} B in {c.get('gather_ms', 0.0):.2f} ms; launches "
+                  f"{kernels}{peak}")
+    print(f"    phase 17 took {time.perf_counter() - t17:.1f} s")
 
     # ---- the kernel table --------------------------------------------------------------
     # each row's launches: its counter in the run it names; 0 only where the

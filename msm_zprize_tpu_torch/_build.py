@@ -94,7 +94,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(CSRC.glob("*.cu*")):  # the kernels and their headers
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

@@ -5,14 +5,17 @@ Mirror of ``msm_zprize_tpu/fields/bytes_codec.py``: little-endian byte rows
 numpy, vectorised over the B values (a loop over limbs or bytes only), and
 rejection-sampled uniform values in [0, bound) that draw the same bytes, in
 the same order, as the JAX package, so one seed gives the same limbs in
-both. The JAX package's native C++ tier (``native/codec.cpp``) is not
-ported: these are its numpy path.
+both. ``bytes_to_limbs``, ``limbs_to_bytes`` and ``_less_than`` run the
+native C++ tier (``utils/native_codec.py`` over ``csrc/codec.cpp``, built at
+first use; a failed build raises) unless the caller passes ``native=False``
+for the numpy path, their twin.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..utils import native_codec
 from .limbs import LimbScheme
 
 __all__ = [
@@ -24,10 +27,12 @@ __all__ = [
 ]
 
 
-def bytes_to_limbs(data: np.ndarray, scheme: LimbScheme) -> np.ndarray:
+def bytes_to_limbs(data: np.ndarray, scheme: LimbScheme, native: bool = True) -> np.ndarray:
     """(B, nbytes) uint8 little-endian -> (n, B) int32 canonical limbs."""
     if data.dtype != np.uint8 or data.ndim != 2:
         raise ValueError(f"expected a (B, nbytes) uint8 array, got {data.dtype} {data.shape}")
+    if native:
+        return native_codec.bytes_to_limbs_native(data, scheme.n, scheme.w)
     B, nbytes = data.shape
     out = np.zeros((scheme.n, B), dtype=np.int32)
     for i in range(scheme.n):
@@ -41,12 +46,15 @@ def bytes_to_limbs(data: np.ndarray, scheme: LimbScheme) -> np.ndarray:
     return out
 
 
-def limbs_to_bytes(limbs: np.ndarray, scheme: LimbScheme, nbytes: int | None = None) -> np.ndarray:
+def limbs_to_bytes(limbs: np.ndarray, scheme: LimbScheme, nbytes: int | None = None,
+                   native: bool = True) -> np.ndarray:
     """(n, B) canonical int32 limbs -> (B, nbytes) uint8 little-endian
     (nbytes defaults to the scheme's capacity, rounded up to whole bytes)."""
     n, B = limbs.shape
     if nbytes is None:
         nbytes = (scheme.bits + 7) // 8
+    if native:
+        return native_codec.limbs_to_bytes_native(limbs, scheme.w, nbytes)
     out = np.zeros((B, nbytes), dtype=np.uint8)
     for j in range(nbytes):
         lo_bit = 8 * j
@@ -71,9 +79,11 @@ def bytes_to_ints(data: np.ndarray) -> list[int]:
     return [int.from_bytes(row.tobytes(), "little") for row in data]
 
 
-def _less_than(limbs: np.ndarray, bound_limbs: np.ndarray) -> np.ndarray:
+def _less_than(limbs: np.ndarray, bound_limbs: np.ndarray, native: bool = True) -> np.ndarray:
     """limbs < bound per column, compared lexicographically from the top
     limb: (n, B) against (n,) -> (B,) bool."""
+    if native:
+        return native_codec.below_bound_native(limbs, bound_limbs)
     lt = np.zeros(limbs.shape[1], dtype=bool)
     decided = np.zeros(limbs.shape[1], dtype=bool)
     for i in range(limbs.shape[0] - 1, -1, -1):

@@ -8,7 +8,9 @@ unless the caller names another device, such as ``"cpu"`` for the plain
 PyTorch twins; ``msm`` runs on the device of its inputs. Modes: Weierstrass
 ``"projective"`` (the default), ``"affine"``, ``"halving"`` and the codec
 storage mode ``"packed"`` (``"fma51"`` where p < 2^255 - 2^206); twisted
-Edwards ``"padded"`` (the default) and ``"basic"``.
+Edwards ``"padded"`` (the default) and ``"basic"``. ``msm`` and
+``msm_unsafe`` take ``mesh=`` (``parallel/mesh.py``: one process a rank,
+each passing the same inputs) to shard the MSM over a device mesh.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..fields.bytes_codec import random_uniform_limbs
 from ..fields.scalar import SimpleScalar, make_glv_scalar
 from ..msm.basic import msm_basic_edwards, msm_basic_projective
 from ..msm.batched_affine import msm_batched_affine
+from . import mesh as mesh_mod
 
 __all__ = ["Weierstrass", "TwistedEdwards"]
 
@@ -72,12 +75,19 @@ def _gather_picks(table, picks):
     return [a.index_select(-1, flat).reshape(a.shape[:-1] + (K, N)) for a in table]
 
 
-def _pad_target(N: int) -> int:
-    """N padded up to a power of two, at least 8."""
+def _pad_target(N: int, multiple: int = 1) -> int:
+    """N padded up to a power of two, at least 8, then up to a multiple of
+    ``multiple`` (the mesh size). For a power-of-two ``multiple`` this is the
+    JAX package's target; for others (3, 6, ...) the JAX loop, which doubles
+    until the target divides by it, never ends."""
     target = 8
     while target < N:
         target *= 2
-    return target
+    return -(-target // multiple) * multiple
+
+
+def _mesh_size(mesh) -> int:
+    return 1 if mesh is None else mesh.size()
 
 
 class Weierstrass:
@@ -120,11 +130,12 @@ class Weierstrass:
 
     # ---- MSM ----------------------------------------------------------------
 
-    def _pad(self, scalars, points: AffinePoints):
-        """Pad N up to a power of two (>= 8); padding points are infinity
-        with zero scalars (no contribution)."""
+    def _pad(self, scalars, points: AffinePoints, multiple: int = 1):
+        """Pad N up to a power of two (>= 8), then to a multiple of
+        ``multiple``; padding points are infinity with zero scalars (no
+        contribution)."""
         N = points.x.shape[-1]
-        pad = _pad_target(N) - N
+        pad = _pad_target(N, multiple) - N
         if not pad:
             return scalars, points
         pad2 = lambda a, value=0: torch.nn.functional.pad(a, (0, pad), value=value)
@@ -155,34 +166,46 @@ class Weierstrass:
     def _codec_ops(self, mode: str):
         return self.ops51 if mode == "fma51" else self.ops_packed
 
-    def _msm(self, scalars, points: AffinePoints, c, safe: bool, mode: str) -> ProjectivePoints:
-        scalars, points = self._pad(scalars, points)
+    def _msm(self, scalars, points: AffinePoints, c, safe: bool, mode: str,
+             mesh) -> ProjectivePoints:
+        scalars, points = self._pad(scalars, points, _mesh_size(mesh))
+
+        def run(W, pts, mode):
+            if mesh is None:
+                return msm_batched_affine(W, self.scalar, scalars, pts, c, safe=safe, mode=mode)
+            return mesh_mod.msm_batched_affine_sharded(W, self.scalar, mesh, scalars, pts, c,
+                                                       safe=safe, mode=mode)
+
         if mode not in CODEC_MODES:
-            return msm_batched_affine(self.ops, self.scalar, scalars, points, c, safe=safe,
-                                      mode=mode)
+            return run(self.ops, points, mode)
         # the codec modes: the projective pipeline with coordinates in the
         # codec's rows, converted on the way in and out
         Wc = self._codec_ops(mode)
         pts = AffinePoints(Wc.from_native(points.x), Wc.from_native(points.y), points.inf)
-        res = msm_batched_affine(Wc, self.scalar, scalars, pts, c, safe=safe, mode="projective")
-        return ProjectivePoints(*(Wc.to_native(a) for a in res))
+        return ProjectivePoints(*(Wc.to_native(a) for a in run(Wc, pts, "projective")))
 
     def msm(self, scalars, points: AffinePoints, c: int | None = None,
-            mode: str = "projective") -> ProjectivePoints:
+            mode: str = "projective", mesh=None) -> ProjectivePoints:
         """Safe MSM (duplicate points allowed): scalars (n, N) limbs, points
         an affine batch of N, on one device. mode: "projective" (the
         default), "affine" (batched-affine adds), "halving", or a codec
         storage mode, "packed" or "fma51" (the projective pipeline on row
-        storage). The result is in the native layout in every mode."""
-        return self._msm(scalars, points, c, True, mode)
+        storage). The result is in the native layout in every mode.
+
+        With ``mesh`` (``parallel.mesh.make_mesh`` / ``make_mesh2``), every
+        rank passes the same inputs, N is padded to a multiple of the mesh
+        size, and each rank returns the whole result; on a mesh
+        ``"halving"`` takes the affine mode's accumulation, as in the JAX
+        package."""
+        return self._msm(scalars, points, c, True, mode, mesh)
 
     def msm_unsafe(self, scalars, points: AffinePoints, c: int | None = None,
-                   mode: str = "projective") -> ProjectivePoints:
+                   mode: str = "projective", mesh=None) -> ProjectivePoints:
         """The msmUnsafe entry point: assumes all effective points distinct,
         which only the affine mode exploits (its adds then skip the doubling
         and cancellation masks); the complete adds of the other modes make
-        it the safe path."""
-        return self._msm(scalars, points, c, False, mode)
+        it the safe path. ``mesh`` as in ``msm``."""
+        return self._msm(scalars, points, c, False, mode, mesh)
 
     def msm_projective(self, scalars, points: ProjectivePoints,
                        c: int | None = None) -> ProjectivePoints:
@@ -266,11 +289,12 @@ class TwistedEdwards:
 
     # ---- MSM ----------------------------------------------------------------
 
-    def _pad(self, scalars, points: ExtPoints):
-        """Pad N up to a power of two (>= 8); padding points are the identity
-        (0, 1, 1, 0) with zero scalars."""
+    def _pad(self, scalars, points: ExtPoints, multiple: int = 1):
+        """Pad N up to a power of two (>= 8), then to a multiple of
+        ``multiple``; padding points are the identity (0, 1, 1, 0) with zero
+        scalars."""
         N = points.X.shape[-1]
-        pad = _pad_target(N) - N
+        pad = _pad_target(N, multiple) - N
         if not pad:
             return scalars, points
         zero = self.ops.zeros(pad, device=points.X.device)
@@ -278,18 +302,21 @@ class TwistedEdwards:
         return scalars, ExtPoints(*(torch.cat([a, z], dim=-1) for a, z in zip(points, zero)))
 
     def msm(self, scalars, points: ExtPoints, c: int | None = None,
-            mode: str = "padded") -> ExtPoints:
+            mode: str = "padded", mesh=None) -> ExtPoints:
         """MSM (duplicate points allowed): scalars (n, N) limbs, points an
         extended batch of N, on one device. mode: "padded" (the default) or
-        "basic" (the halving engine)."""
-        scalars, points = self._pad(scalars, points)
+        "basic" (the halving engine). ``mesh`` as in ``Weierstrass.msm``."""
+        scalars, points = self._pad(scalars, points, _mesh_size(mesh))
+        if mesh is not None:
+            return mesh_mod.msm_edwards_sharded(self.ops, mesh, scalars, points,
+                                                self.scalar.bits, c, mode=mode)
         return msm_basic_edwards(self.ops, scalars, points, self.scalar.bits, c, mode=mode)
 
     def msm_unsafe(self, scalars, points: ExtPoints, c: int | None = None,
-                   mode: str = "padded") -> ExtPoints:
+                   mode: str = "padded", mesh=None) -> ExtPoints:
         """The msmUnsafe entry point: the unified add is complete, so it is
         the safe path."""
-        return self.msm(scalars, points, c, mode)
+        return self.msm(scalars, points, c, mode, mesh)
 
     def msm_bigint(self, scalars, points, device=DEVICE, c: int | None = None):
         """Python ints in, affine int point out."""

@@ -10,8 +10,9 @@ shims, ``scripts/zprize23/submission.ts``, ``submission-bls377.ts``):
   distinct ones ``msm_unsafe``; ``mode=`` is passed through;
 * the result is an affine int pair, or ``None`` for infinity.
 
-Tensors go to ``device`` ("cuda" unless the caller asks for "cpu"). One
-card: there is no ``mesh`` argument (multi-GPU is ROADMAP queue 1, item 13).
+Tensors go to ``device`` ("cuda" unless the caller asks for "cpu"). With
+``mesh=`` (``parallel.mesh``; every rank calls with the same inputs) the MSM
+is sharded over the mesh's ranks, and every rank returns the result.
 """
 
 from __future__ import annotations
@@ -59,8 +60,9 @@ def _pick_msm(curve, pts: list):
 
 
 @functools.cache
-def make_compute_msm(params: WeierstrassParams = BLS12_377, device=DEVICE):
-    """A compute_msm closure for one curve, its tensors on ``device``."""
+def make_compute_msm(params: WeierstrassParams = BLS12_377, mesh=None, device=DEVICE):
+    """A compute_msm closure for one curve (and an optional device mesh),
+    its tensors on ``device``."""
     curve = Weierstrass.create(params)
 
     def compute_msm(points, scalars, mode: str = "projective"):
@@ -71,11 +73,11 @@ def make_compute_msm(params: WeierstrassParams = BLS12_377, device=DEVICE):
         pts = _to_int_points(points)
         s = curve.scalars_from_ints(_to_int_scalars(scalars), device)
         p = curve.points_from_ints(pts, device)
-        return curve.result_to_int(_pick_msm(curve, pts)(s, p, mode=mode))
+        return curve.result_to_int(_pick_msm(curve, pts)(s, p, mode=mode, mesh=mesh))
 
     return compute_msm
 
 
-def compute_msm(points, scalars, mode: str = "projective", device=DEVICE):
+def compute_msm(points, scalars, mode: str = "projective", device=DEVICE, mesh=None):
     """BLS12-377 MSM of int or byte inputs -> an affine int pair or None."""
-    return make_compute_msm(BLS12_377, device)(points, scalars, mode)
+    return make_compute_msm(BLS12_377, mesh, device)(points, scalars, mode)

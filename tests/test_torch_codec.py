@@ -24,6 +24,10 @@
 * ``compute_msm`` with int, bytes and uint8-array inputs, without a
   duplicated point (``msm_unsafe``) and with one (``msm``), against the same
   oracle.
+* the native bytes tier (``utils/native_codec.py``, in the "codecs" item)
+  bit for bit against the port's numpy twin, the JAX ``bytes_codec`` and the
+  JAX package's own native path, on the four curves' limb schemes; a source
+  that does not build raises.
 
 No whole-MSM JAX run in a codec mode: its interpret-mode compiles take tens
 of minutes, and one interpret-mode K14 kernel (~12 s) stands for the
@@ -32,6 +36,9 @@ suite's wall time follows its item count, and the replay of pytest-xdist's
 scheduler in ``PERF.md`` chose the count. The CUDA kernels run on the card in
 ``tests/test_torch_cuda.py``.
 """
+
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,17 +49,23 @@ import jax.numpy as jnp
 from msm_zprize_tpu.bigint.msm import msm as msm_oracle
 from msm_zprize_tpu.bigint.weierstrass import ProjectiveCurve
 from msm_zprize_tpu.curves import weierstrass51 as J51
-from msm_zprize_tpu.curves.params import BLS12_377, ED_ON_BLS12_377, PALLAS
+from msm_zprize_tpu.curves.params import BLS12_377, BLS12_381, ED_ON_BLS12_377, PALLAS
+from msm_zprize_tpu.fields import bytes_codec as jax_codec
 from msm_zprize_tpu.fields import fma51_pallas as JF
+from msm_zprize_tpu.fields import limbs as JL
 from msm_zprize_tpu.fields.pallas_field import FieldCtx
 from msm_zprize_tpu.parallel.api import Weierstrass as JaxWeierstrass
+from msm_zprize_tpu.utils import native_codec as jax_native
 from msm_zprize_tpu_torch.curves import cuda_curve
+from msm_zprize_tpu_torch.fields import bytes_codec
 from msm_zprize_tpu_torch.fields import codec as TC
+from msm_zprize_tpu_torch.fields import limbs as TL
 from msm_zprize_tpu_torch.fields.cuda_codec import montmul_rows_plain
 from msm_zprize_tpu_torch.fields.fp import make_field
 from msm_zprize_tpu_torch.parallel.api import Weierstrass
 from msm_zprize_tpu_torch.submission import compute_msm
 from msm_zprize_tpu_torch.testing.points import expected_msm, points_with_logs
+from msm_zprize_tpu_torch.utils import native_codec
 from msm_zprize_tpu_torch.utils.convert import affine_from_jax, affine_rows_from_jax, scalars_from_jax
 
 torch.set_num_threads(1)
@@ -113,6 +126,49 @@ def _check_codecs():
     with pytest.raises(ValueError, match="2\\^255"):
         TC.Fma51Codec(P)
     assert TC.codec_id(TC.PackedCodec(P)) == 1 and TC.codec_id(TC.Fma51Codec(PALLAS.modulus)) == 2
+    _check_native_bytes_tier()
+
+
+def _check_native_bytes_tier():
+    """The native bytes tier (``utils/native_codec.py`` over ``csrc/codec.cpp``)
+    bit for bit against the port's numpy twin (``native=False``), the JAX
+    ``bytes_codec`` and the JAX package's own native path, on the limb
+    schemes of the four curves' base fields and scalars: random values below
+    2^bits(bound) with the bound and bound - 1 among them, at a width that
+    splits over threads; a source that does not build raises."""
+    rng = np.random.default_rng(7)
+    B = 40_001  # more than two of the C++ loop's 16,384-element thread chunks
+    for params in (BLS12_377, BLS12_381, PALLAS, ED_ON_BLS12_377):
+        for bound in (params.modulus, params.order):
+            bits = bound.bit_length()
+            n, nbytes = -(-bits // 12), (bits + 7) // 8
+            ts, js = TL.LimbScheme(12, n), JL.LimbScheme(12, n)
+            data = rng.integers(0, 256, size=(B, nbytes), dtype=np.uint8)
+            data[:, -1] &= (1 << (bits - 8 * (nbytes - 1))) - 1
+            data[:2] = bytes_codec.ints_to_bytes([bound, bound - 1], nbytes)
+            name = (params.label, bits)
+            limbs = bytes_codec.bytes_to_limbs(data, ts)
+            for ref in (bytes_codec.bytes_to_limbs(data, ts, native=False),
+                        jax_codec.bytes_to_limbs(data, js), jax_native.bytes_to_limbs_native(data, n, 12)):
+                assert np.array_equal(limbs, ref), name
+            back = bytes_codec.limbs_to_bytes(limbs, ts, nbytes)
+            for ref in (bytes_codec.limbs_to_bytes(limbs, ts, nbytes, native=False),
+                        jax_codec.limbs_to_bytes(limbs, js, nbytes),
+                        jax_native.limbs_to_bytes_native(limbs, 12, nbytes), data):
+                assert np.array_equal(back, ref), name
+            bl = np.array(ts.to_limbs(bound), dtype=np.int64)
+            below = bytes_codec._less_than(limbs, bl)
+            assert not below[0] and below[1], name
+            for ref in (bytes_codec._less_than(limbs, bl, native=False), jax_codec._less_than(limbs, bl),
+                        jax_native.below_bound_native(limbs, bl)):
+                assert np.array_equal(below, ref), name
+    with tempfile.TemporaryDirectory() as tmp:
+        bad = Path(tmp) / "codec.cpp"
+        bad.write_text("this is not C++\n")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(native_codec, "SOURCE", bad)
+            with pytest.raises(RuntimeError, match="did not build"):
+                native_codec.library.__wrapped__()
 
 
 # ---- K13 ------------------------------------------------------------------------

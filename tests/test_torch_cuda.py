@@ -44,7 +44,10 @@ Edwards padded path's widths (23 to 471,040), its masked-off lanes bit for
 bit. The Edwards K12 (one instance) at W = 1 and 23, k = 1, 5 and 11.
 Every curve kernel's outputs lie below 2p. An Fp22 and a
 Pallas launch on the same limbs take different shape IDs, and the C
-entries refuse a Pallas field under Fp22's.
+entries refuse a Pallas field under Fp22's. The sharded MSM on two rank
+processes sharing the card over gloo (``testing/mesh_ranks.card_ranks``):
+every rank's result equals the known logs, and each run launched every
+kernel of its path.
 """
 
 import numpy as np
@@ -61,8 +64,10 @@ from msm_zprize_tpu_torch.fields.codec import Fma51Codec, PackedCodec
 from msm_zprize_tpu_torch.fields.cuda_scalar import glv_digits, glv_digits_plain, simple_digits
 from msm_zprize_tpu_torch.fields.scalar import signed_digits
 from msm_zprize_tpu_torch.msm.common import halving_layout
+from msm_zprize_tpu_torch.parallel import launch
 from msm_zprize_tpu_torch.parallel.api import TwistedEdwards, Weierstrass
 from msm_zprize_tpu_torch.submission import compute_msm
+from msm_zprize_tpu_torch.testing import mesh_ranks
 from msm_zprize_tpu_torch.testing.points import (
     ed_expected_msm, ed_points_with_logs, expected_msm, points_with_logs,
 )
@@ -520,3 +525,25 @@ def test_kernels_match_plain_twins(dev):
     code = lib.msm_montmul(_build.ptrs(x, y, out), _build.ints([WIDTH] * 3), WIDTH,
                            _build.field_shape(FE), _build.field_words(FP), _build.stream_of(x))
     assert code != 0
+
+
+def test_mesh_two_ranks_on_one_card(dev):
+    """BLS12-377 on the 1-D mesh and both 2-D ones, ed-on-bls12-377 on the
+    1-D one (N = 2^10) and ``compute_msm`` with ``mesh=`` (N = 256), on two
+    ranks sharing the card over gloo (NCCL refuses two ranks on one card)."""
+    N, seed = 1 << 10, 31
+    pts, logs = points_with_logs(BLS12_377, N, seed=seed)
+    epts, elogs = ed_points_with_logs(ED_ON_BLS12_377, N, seed=seed)
+    W, E = Weierstrass.create(BLS12_377), TwistedEdwards.create(ED_ON_BLS12_377)
+    scs = W.scalar.unpack(W.random_scalars(256, seed=seed + 1, device="cpu"))
+    inputs = {"N": N, "seed": seed, "bls12-377": pts, "ed-on-bls12-377": epts,
+              "compute_msm": (scs, pts[:256])}
+    want = {
+        "bls12-377": expected_msm(BLS12_377, W.scalar.unpack(W.random_scalars(N, seed, "cpu")), logs),
+        "ed-on-bls12-377": ed_expected_msm(ED_ON_BLS12_377,
+                                           E.scalar.unpack(E.random_scalars(N, seed, "cpu")), elogs),
+        "compute_msm": expected_msm(BLS12_377, scs, logs[:256]),
+    }
+    results = launch.spawn(mesh_ranks.card_ranks, 2, device="cuda", backend="gloo", args=(inputs,))
+    mesh_ranks.check_card_ranks(results, want)
+    assert all(res["bls12-377 msm 1-D"]["counts"]["exchange_bytes"] > 0 for res in results)

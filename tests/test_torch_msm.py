@@ -105,8 +105,9 @@ def test_port_boundaries(curves):
     and "fma51" on BLS12-377 raises as the JAX package's does (the 51x5
     layout's 255-bit ceiling on p), naming the one supported curve below it
     (Pallas); unknown modes raise; importing the port (every module, item
-    10's sqrt, barrett, fma51 and bytes_codec named) leaves JAX and the
-    JAX package out, and chip_smoke.py imports neither."""
+    10's sqrt, barrett, fma51 and bytes_codec, the mesh, its launcher, the
+    entry twin and the native codec named) leaves JAX and the JAX package
+    out, and chip_smoke.py imports neither."""
     assert dataclasses.asdict(port_params.BLS12_377) == dataclasses.asdict(BLS12_377)
     port = curves[0]
     x = np.zeros((32, 4), np.int32)
@@ -137,7 +138,8 @@ def test_port_boundaries(curves):
         "    importlib.import_module(info.name)\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "assert 'msm_zprize_tpu' not in sys.modules\n"
-        "for name in ('fields.sqrt', 'fields.barrett', 'fields.fma51', 'fields.bytes_codec'):\n"
+        "for name in ('fields.sqrt', 'fields.barrett', 'fields.fma51', 'fields.bytes_codec',\n"
+        "             'parallel.mesh', 'parallel.launch', 'graft_entry', 'utils.native_codec'):\n"
         "    assert m.__name__ + '.' + name in sys.modules, name\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
