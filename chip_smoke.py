@@ -112,6 +112,17 @@ non-zero and no result line is printed):
     rank, its wall, the exchange's and the gather's bytes and times, its
     launches by kernel (the combine's adds among K4's and K11's) and its
     peak device memory; and ``compute_msm`` with ``mesh=`` at N = 2^12.
+18. every field ``make_field`` takes: K1 and K8 on the 11 example fields and
+    on primes of n = 1 and n = 63 limbs (the shapes outside the main library
+    built on demand, all at once), against the host and their twins; every
+    limb-storage curve kernel (K3-K7, K4m, K10-K12, the masked K11) on
+    goldilocks, babybear and secp256k1's base field against its twin; the
+    n = 63 refusal of the curve entries; the equivalence harness on the card.
+19. the tools: ``run_msm`` on BLS12-377 at 2^16 (with its phase table) and
+    2^20 (against the known logs) and on ed-on-bls12-377 at 2^16;
+    ``field_benchmark``; ``evaluate_msm`` over c = 10..14 in turns (records
+    only), its reading of the table's c beside ``run_msm``'s before and after
+    it; ``scaling_bench`` at d = 1 on NCCL.
 
 Phase 2 holds the kernels of phases 13-14 too: K1, K2, K8 and K3-K7 on each
 curve's limbs, K13 and the K14 variants on each of its codec storages.
@@ -130,6 +141,8 @@ import statistics
 import subprocess
 import sys
 import time
+import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 LOG_N = 16
@@ -262,6 +275,7 @@ def main() -> None:
     from msm_zprize_tpu_torch.bigint import field as host_field
     from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
     from msm_zprize_tpu_torch.curves.edwards import ExtPoints
+    from msm_zprize_tpu_torch.curves.example_fields import EXAMPLE_FIELDS
     from msm_zprize_tpu_torch.curves.params import BLS12_377, BLS12_381, ED_ON_BLS12_377, PALLAS
     from msm_zprize_tpu_torch.curves.weierstrass import AffinePoints, ProjectivePoints
     from msm_zprize_tpu_torch.fields import cuda_codec, cuda_mul, cuda_scalar
@@ -269,6 +283,7 @@ def main() -> None:
     from msm_zprize_tpu_torch.fields.bytes_codec import bytes_to_limbs, limbs_to_bytes
     from msm_zprize_tpu_torch.fields.codec import Fma51Codec
     from msm_zprize_tpu_torch.fields.fma51 import make_fma51_field, montmul_fma_model
+    from msm_zprize_tpu_torch.fields.fp import make_field
     from msm_zprize_tpu_torch.fields.limbs import LimbScheme, unpack
     from msm_zprize_tpu_torch.fields.scalar import GlvScalarSpecialMsm, signed_digits
     from msm_zprize_tpu_torch.fields.sqrt import make_sqrt
@@ -279,9 +294,12 @@ def main() -> None:
     from msm_zprize_tpu_torch.parallel.api import TwistedEdwards, Weierstrass
     from msm_zprize_tpu_torch.parallel.mesh import make_mesh
     from msm_zprize_tpu_torch.submission import _pick_msm, _to_int_points, _to_int_scalars, compute_msm
+    from msm_zprize_tpu_torch.scripts import evaluate_msm, field_benchmark, run_msm, scaling_bench
+    from msm_zprize_tpu_torch.testing import Random, Spec, equivalent
     from msm_zprize_tpu_torch.testing.bounds import (
-        HBM_BYTES_PER_S, bound_ms, glv_digits_work, imad_per_s, mont_imads,
+        HBM_BYTES_PER_S, bound_ms, curve_work, glv_digits_work, imad_per_s, mont_imads,
     )
+    from msm_zprize_tpu_torch.testing.equivalent import field_spec
     from msm_zprize_tpu_torch.testing.points import (
         ed_expected_msm, ed_naive_msm, ed_points_with_logs, expected_msm, naive_msm,
         points_with_logs,
@@ -1471,6 +1489,242 @@ def main() -> None:
                   f"{kernels}{peak}")
     print(f"    phase 17 took {time.perf_counter() - t17:.1f} s")
 
+    # ---- 18. queue 3's fault 3: every field make_field takes, on the card -----------
+    # K1 and K8 on every EXAMPLE_FIELDS field and on the two synthetic primes at
+    # the ends of the limb code's domain (n = 1 and n = 63): the fields outside
+    # the four shapes of the main library build a shape of their own at first
+    # use (_build.field_shape, _build.library(shape); built here all at once).
+    # Each field's run: the user's entry points (MontgomeryFp.montmul,
+    # exp_const, inverse) at 4 lanes, against the host's ints; then K1 and K8
+    # against their twins at W = 1, 4 and 65,536 (the row), K1 limb for limb
+    # where the twin defines the integer (4p < 2^(32 NW)). Then every
+    # limb-storage curve kernel (K3, K4, K4m, K5, K6, K7, K10, K11, the
+    # masked K11, K12; 3b no small integer: one product by 3b R) on
+    # goldilocks, babybear and secp256k1's base field, with random curve
+    # constants, against their twins at 65,536 lanes, a row each; n = 63
+    # refused by the curve entries; then the equivalence harness on the card.
+    t18 = time.perf_counter()
+    fields18 = dict(EXAMPLE_FIELDS)
+    fields18["n1-p97"] = 97
+    fields18["n63-p751"] = host_field.next_prime((1 << 750) + 12345)
+    made18 = {name: make_field(p) for name, p in fields18.items()}
+    sids18 = {name: _build.field_shape(G) for name, G in made18.items()}
+    dyn18 = sorted({s for s in sids18.values() if s >= _build.DYN_ID_BASE})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(dyn18)) as pool:  # one nvcc per source of each shape, all at once
+        builds18 = dict(zip(dyn18, pool.map(lambda s: _build.library(s)[1], dyn18)))
+    print(f"[18 shapes] {len(dyn18)} shapes made on demand built together in "
+          f"{time.perf_counter() - t0:.1f} s (main library untouched: {info.path.name}); each: "
+          + "; ".join(f"shape {s} = (n, NW) {_build.shape_layout(s)[:2]}: nvcc {b.seconds:.1f} s "
+                      f"({b.path.name})" for s, b in builds18.items()))
+    for s18, b in builds18.items():  # one line a kernel: registers, stack, spills
+        kern, props = None, {}
+        for line in b.log.splitlines():
+            m = re.search(r"Compiling entry function '_Z\w*?\d+([a-z_]+_kernel)(\w*)'", line)
+            if m:
+                kern = m.group(1) + ("<masked>" if "Lb1EEEv" in m.group(2) else "")
+            elif kern and "stack frame" in line:
+                props[kern] = line.split(":")[-1].strip()
+            elif kern and "Used" in line and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                print(f"    ptxas shape {s18}: {kern}: {regs} registers; {props.get(kern, '')}")
+
+    def once_ms(fn):
+        """CUDA-event ms of one fn() call, and its result."""
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), out
+
+    W18 = (1, 4, N)
+    for name, G in made18.items():
+        p, sid = G.p, sids18[name]
+        n, nw, carry = _build.shape_layout(sid)
+        rw, tail = divmod(12 * n, 32)
+        mm = mont_imads(nw, tail > 0, rw)
+        run18 = f"phase 18 {name} montmul, exp_const, inverse"
+        x4, y4 = field_elems(G, 4, (1, 2, 3, 5)), field_elems(G, 4, (p - 1, 7, 11, 13))  # nonzero
+        torch.cuda.synchronize()
+        counters.reset()
+        outs = (G.montmul(x4, y4), G.exp_const(x4, p - 2), G.inverse(x4))
+        torch.cuda.synchronize()
+        run_counts[run18] = counters.snapshot()
+        launches_of(run_counts[run18], (cuda_mul.KERNEL, cuda_mul.K8), run18)
+        xs, ys = G.unpack(x4), G.unpack(y4)
+        want4 = ([a * b % p for a, b in zip(xs, ys)], [pow(a, p - 2, p) for a in xs],
+                 [pow(a, -1, p) for a in xs])
+        if [G.unpack(o) for o in outs] != list(want4):
+            raise AssertionError(f"phase 18 {name}: montmul / exp_const / inverse disagree with the host")
+        k1_err = k8_err = 0
+        for W in W18:
+            x = field_elems(G, W, (4 * p - 1, 2 * p - 1, 1))
+            y = field_elems(G, W, (4 * p - 1, 1, 2 * p - 2))
+            got, want = cuda_mul.montmul(G, x, y), G.montmul_plain(x, y)
+            k1_err = max(k1_err, mod_p_err(G, [got], [want]) if carry else raw_err([got], [want]))
+            if W == N:
+                k8_plain_ms, want8 = once_ms(lambda: G.exp_const_plain(x, p - 2))
+            else:
+                want8 = G.exp_const_plain(x, p - 2)
+            k8_err = max(k8_err, curve_err(G, [cuda_mul.exp_const(G, x, p - 2)], [want8]))
+        products = cuda_mul.exp_products(cuda_mul.exp_chain(p - 2))
+        design = "warp" if -(-32 * nw // 30) <= 13 else "one thread a lane"
+        shape_txt = f"shape {sid} (n = {n}, NW = {nw}, {rw} rounds + {tail}-bit tail)"
+        kernel_row(f"k1_f_{name}", f"montmul_{name}", "K1", "montmul.cu",
+                   "msm_zprize_tpu/fields/pallas_mul.py:167", run18, cuda_mul.KERNEL, k1_err,
+                   _graph_ms(torch, lambda: cuda_mul.montmul(G, x, y)),
+                   _cuda_ms(torch, lambda: G.montmul_plain(x, y), PLAIN_REPS),
+                   f"({n}, {N}) {shape_txt}; W = 1, 4 too", 3 * n * 4 * N, mm * N)
+        kernel_row(f"k8_f_{name}", f"exp_const_{name}", "K8", "montmul.cu",
+                   "msm_zprize_tpu/fields/pallas_mul.py:237", run18, cuda_mul.K8, k8_err,
+                   _graph_ms(torch, lambda: cuda_mul.exp_const(G, x, p - 2), 3), k8_plain_ms,
+                   f"({n}, {N}), e = p - 2 ({products} products, {design}) {shape_txt}; W = 1, 4 too",
+                   2 * n * 4 * N, products * mm * N)
+        del x, y, got, want, want8
+
+    # every limb-storage curve kernel on three shapes made on demand, random
+    # constants; the masked kernels' masked-off lanes P1's limbs bit for bit
+    crng = random.Random(SEED)
+    for name in ("goldilocks", "babybear", "secp256k1-fp"):
+        G = made18[name]
+        p, (n, nw, _) = G.p, _build.shape_layout(sids18[name])
+        rw, tail = divmod(12 * n, 32)
+        mm = mont_imads(nw, tail > 0, rw)
+        Wc = types.SimpleNamespace(F=G, b3_mont=crng.randrange(2, p) * G.R % p, b3_small=None,
+                                   storage=cuda_curve.Storage(G.n))
+        E18 = types.SimpleNamespace(F=G, k_mont=crng.randrange(2, p) * G.R % p, two_mont=2 * G.R % p)
+        P1, P2 = [field_elems(G, N) for _ in range(3)], [field_elems(G, N) for _ in range(3)]
+        Q1, Q2 = [field_elems(G, N) for _ in range(4)], [field_elems(G, N) for _ in range(4)]
+        inf, m4, m11 = flags(N), flags(N), flags(N)
+        slots = [field_elems(G, N), field_elems(G, N), flags(N), flags(N),
+                 field_elems(G, N), field_elems(G, N), flags(N), flags(N)]
+        # kernel: (launch, twin, k, lanes computing, (mask, P1) for the pass-through)
+        calls = {
+            cuda_curve.K3: (lambda: cuda_curve.aff_pair_add(Wc, *slots),
+                            lambda: cuda_curve.aff_pair_add_plain(Wc, *slots), 0, None, None),
+            cuda_curve.K4: (lambda: cuda_curve.proj_add(Wc, *P1, *P2),
+                            lambda: cuda_curve.proj_add_plain(Wc, *P1, *P2), 0, None, None),
+            cuda_curve.K4M: (lambda: cuda_curve.proj_add(Wc, *P1, *P2, mask=m4),
+                             lambda: cuda_curve.proj_add_plain(Wc, *P1, *P2, mask=m4), 0,
+                             int(m4.sum()), (m4, P1)),
+            cuda_curve.K5: (lambda: cuda_curve.proj_double_k(Wc, *P1, 3),
+                            lambda: cuda_curve.proj_double_k_plain(Wc, *P1, 3), 3, None, None),
+            cuda_curve.K6: (lambda: cuda_curve.proj_double(Wc, *P1),
+                            lambda: cuda_curve.proj_double_plain(Wc, *P1), 0, None, None),
+            cuda_curve.K7: (lambda: cuda_curve.proj_add_mixed(Wc, *P1, *P2[:2], inf),
+                            lambda: cuda_curve.proj_add_mixed_plain(Wc, *P1, *P2[:2], inf), 0,
+                            int(inf.eq(0).sum()), (inf.eq(0), P1)),
+            cuda_edwards.K10: (lambda: cuda_edwards.ed_pair_add(E18, *slots),
+                               lambda: cuda_edwards.ed_pair_add_plain(E18, *slots), 0, None, None),
+            cuda_edwards.K11: (lambda: cuda_edwards.ed_add(E18, *Q1, *Q2),
+                               lambda: cuda_edwards.ed_add_plain(E18, *Q1, *Q2), 0, None, None),
+            cuda_edwards.K11M: (lambda: cuda_edwards.ed_add(E18, *Q1, *Q2, mask=m11),
+                                lambda: cuda_edwards.ed_add_plain(E18, *Q1, *Q2, mask=m11), 0,
+                                int(m11.sum()), (m11, Q1)),
+            cuda_edwards.K12: (lambda: cuda_edwards.ed_double_k(E18, *Q1, 3),
+                               lambda: cuda_edwards.ed_double_k_plain(E18, *Q1, 3), 3, None, None),
+        }
+        run18 = f"phase 18 curve kernels on {name}"
+        torch.cuda.synchronize()
+        counters.reset()
+        gots = {key: fns[0]() for key, fns in calls.items()}
+        torch.cuda.synchronize()
+        run_counts[run18] = counters.snapshot()
+        launches_of(run_counts[run18], list(calls), run18)
+        for key, (kern, plain, k, computing, keep) in calls.items():
+            plain_ms, want = once_ms(plain)
+            # K3 and K10 as phase 2 holds them: mod p (their outputs need not be below 2p)
+            pair = key in (cuda_curve.K3, cuda_edwards.K10)
+            err = (mod_p_err if pair else curve_err)(G, gots[key], want)
+            if keep is not None:
+                off = keep[0] == 0
+                err = max(err, raw_err([g[:, off] for g in gots[key]], [a[:, off] for a in keep[1]]))
+            nbytes, imads = curve_work(key, n, mm, N, k, computing)
+            kid = key.split("_")[0]
+            edwards = key in (cuda_edwards.K10, cuda_edwards.K11, cuda_edwards.K11M, cuda_edwards.K12)
+            kernel_row(f"{key}_f_{name}", f"{key.split('_', 1)[1]}_{name}",
+                       {"k4m": "K4m", "k11m": "K11"}.get(kid, kid.upper()),
+                       "edwards.cu" if edwards else "curve.cu",
+                       curve_line(149), run18, key, err, _graph_ms(torch, kern), plain_ms,
+                       f"({n}, {N}) shape {sids18[name]}" + (f", k = {k}" if k else "")
+                       + (", masked" if keep is not None and key != cuda_curve.K7 else "")
+                       + (", k R random" if edwards else ", 3b R by a product"),
+                       nbytes, imads)
+        del P1, P2, Q1, Q2, slots, gots
+    G63 = made18["n63-p751"]
+    W63 = types.SimpleNamespace(F=G63, b3_mont=3 * G63.R % G63.p, b3_small=3,
+                                storage=cuda_curve.Storage(G63.n))
+    z63 = field_elems(G63, 4)
+    before = dict(counters.COUNTS)
+    try:
+        cuda_curve.proj_double(W63, z63, z63, z63)
+        raise AssertionError("the curve kernels took a field of 63 limbs")
+    except ValueError as err:
+        if str(_build.CURVE_MAX_LIMBS) not in str(err) or dict(counters.COUNTS) != before:
+            raise AssertionError(f"the n = 63 refusal does not name the limit, or launched: {err}")
+        print(f"[18 curve] n = 63: refused before any launch (ValueError: {err})")
+
+    # the equivalence harness (testing/equivalent.py) on the card: the JAX
+    # harness test's four extra fields, mul / add / sub, and inverse(0) flagged
+    run18 = "phase 18 harness"
+    torch.cuda.synchronize()
+    counters.reset()
+    for name in ("ed25519-fp", "secp256k1-fp", "goldilocks", "babybear"):
+        G, p = made18[name], fields18[name]
+        spec = field_spec(G, Random.field(p), batch=4, device="cuda")
+        runs = dict(min_runs=8, max_runs=8)
+        equivalent(frm=[spec, spec], to=spec, label=f"{name} mul", **runs)(lambda a, b: a * b % p, G.montmul)
+        equivalent(frm=[spec, spec], to=spec, label=f"{name} add", **runs)(lambda a, b: (a + b) % p, G.add)
+        equivalent(frm=[spec, spec], to=spec, label=f"{name} sub", **runs)(lambda a, b: (a - b) % p, G.sub)
+        zero = Spec(lambda r: 0, spec.there, spec.back)
+        try:
+            equivalent(frm=[zero], to=spec, label=f"{name} inv0", min_runs=1, max_runs=1)(
+                lambda a: pow(a, -1, p), G.inverse)
+            raise RuntimeError(f"{name}: inverse(0) was not flagged")
+        except AssertionError:
+            pass  # the reference throws, the port returns 0: flagged, as in the JAX test
+    torch.cuda.synchronize()
+    run_counts[run18] = counters.snapshot()
+    launches_of(run_counts[run18], (cuda_mul.KERNEL, cuda_mul.K8), run18)
+    print(f"[18 harness] mul, add, sub equal the host's on the card on ed25519, secp256k1, "
+          f"goldilocks and babybear (8 draws x 4 lanes each); inverse(0) flagged on each; launches "
+          f"{ {k: v for k, v in run_counts[run18].items() if k.startswith('k')} }")
+    print(f"    phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    # ---- 19. the tools on the card ------------------------------------------------------
+    t19 = time.perf_counter()
+    tool19 = {}
+    for argv in (["bls12-377", "16", "--runs", "10", "--warmup", "3", "--verbose"],
+                 ["bls12-377", "20", "--runs", "5", "--warmup", "2", "--points", "logs"],
+                 ["ed-on-bls12-377", "16", "--runs", "10", "--warmup", "3"]):
+        t0 = time.perf_counter()
+        res = run_msm.main(argv)
+        tool19[f"{argv[0]} 2^{argv[1]}"] = res
+        peak = f"{res['peak_bytes'] / 2**30:.2f} GiB" if res["peak_bytes"] else "not measured"
+        print(f"[19 run_msm] {' '.join(argv)}: {res['median_ms']:.3f} +- {res['std_ms']:.3f} ms "
+              f"(median +- sigma) on {card}; peak device memory {peak}; checked "
+              f"{res.get('checked', [])}; {time.perf_counter() - t0:.1f} s with its set-up")
+    if tool19["bls12-377 2^20"].get("checked") != ["known logs"]:
+        raise AssertionError("the 2^20 MSM was not held against the known-discrete-log result")
+    print("[19 field_benchmark] bls12-377:")
+    field_benchmark.main(["bls12-377"])
+    print("[19 evaluate_msm] bls12-377 2^16, c = 10..14 in turns (records only; the window "
+          "table stays):")
+    sweep = evaluate_msm.main(["bls12-377", "16", "--cmin", "10", "--cmax", "14", "--runs", "10"])
+    # the sweep's reading of the table's c against run_msm's of the same MSM
+    # (c = None, the table's c) just before the sweep and just after it
+    again = run_msm.main(["bls12-377", "16", "--runs", "10", "--warmup", "3"])
+    c12 = sweep["default"]
+    print(f"[19 sweep check] bls12-377 2^16, c = {c12}: sweep {sweep['table'][c12][0]:.3f} +- "
+          f"{sweep['table'][c12][1]:.3f} ms; run_msm before it "
+          f"{tool19['bls12-377 2^16']['median_ms']:.3f} +- {tool19['bls12-377 2^16']['std_ms']:.3f}, "
+          f"after it {again['median_ms']:.3f} +- {again['std_ms']:.3f} (median +- sigma, on {card})")
+    print("[19 scaling_bench] bls12-377 2^16, d = 1 on NCCL (a process of its own):")
+    scaling_bench.main(["bls12-377", "16", "--devices", "1", "--backend", "nccl", "--runs", "5"])
+    print(f"    phase 19 took {time.perf_counter() - t19:.1f} s")
+
     # ---- the kernel table --------------------------------------------------------------
     # each row's launches: its counter in the run it names; 0 only where the
     # row is on no path of that run (the K14 variants of K4m, K6 and K7 in a
@@ -1492,6 +1746,7 @@ def main() -> None:
         })
         entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
     print(f"[end] every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
+    print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

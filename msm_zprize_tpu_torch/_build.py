@@ -9,6 +9,14 @@ reuses it and an edited source builds anew. Each C entry point launches on
 the stream it is given, never synchronises, and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
 
+A field outside the four shapes of that library (``FIELD_SHAPES``) gets a
+shape made on demand (``csrc/field.cuh``'s DynShape): ``field_shape``
+derives its ID from (n, p), and ``library(shape)`` builds, at first use, a
+library of that shape alone (K1 and K8 from ``montmul.cu``; for n <= 33 the
+limb-storage curve kernels from ``curve.cu`` and ``edwards.cu``), cached by
+the same hash and the shape. It never rebuilds the main library, and a
+failed build raises.
+
 Counterpart of the JAX package's build-on-first-use idiom
 (``native/Makefile``, ``msm_zprize_tpu/utils/native_codec.py``).
 """
@@ -27,7 +35,8 @@ from pathlib import Path
 
 __all__ = [
     "BuildInfo", "library", "check", "ptrs", "ints", "stream_of",
-    "on_cpu", "rows", "flags", "field_shape", "field_words", "codec_arg",
+    "on_cpu", "rows", "flags", "field_shape", "shape_layout", "field_words", "codec_arg",
+    "curve_shape", "CURVE_MAX_LIMBS", "MAX_LIMBS",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -69,6 +78,14 @@ _ENTRIES = {
 # (ed-on-bls12-377 and Pallas both have n = 22): field_shape derives the ID
 # from (n, p), and the C entries take the ID.
 FIELD_SHAPES = {1: (32, 12, False), 2: (22, 8, False), 3: (33, 12, False), 4: (22, 8, True)}
+# Shapes made on demand (csrc/field.cuh::DynShape): ID = DYN_ID_BASE + 32 n +
+# NW, with NW the fewest words with 8p < 2^(32 NW) and at least the 12 n div
+# 32 full reduction rounds, for every limb count the limb code takes (n = 1..63:
+# MontgomeryFp's 2 n 2^24 < 2^31); the curve kernels are built for n <= 33,
+# the widest curve field of the repository (BLS12-381).
+DYN_ID_BASE = 1024
+MAX_LIMBS = 63
+CURVE_MAX_LIMBS = 33
 
 
 @dataclass(frozen=True)
@@ -92,8 +109,8 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(defines=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for path in sorted(CSRC.glob("*.cu*")):  # the kernels and their headers
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -112,18 +129,21 @@ def _run_all(cmds) -> str:
     return "".join(outs)
 
 
-def _build() -> BuildInfo:
+def _build(name: str = "kernels", sources=None, defines=()) -> BuildInfo:
+    """Build (or reuse) ``build/libmsm_<name>_<hash>.so`` from ``sources``
+    (default: every csrc/*.cu), each compiled with ``defines``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = _digest()
-    lib = BUILD_DIR / f"libmsm_kernels_{tag}.so"
-    log = BUILD_DIR / f"libmsm_kernels_{tag}.log"
+    tag = _digest(defines)
+    lib = BUILD_DIR / f"libmsm_{name}_{tag}.so"
+    log = BUILD_DIR / f"libmsm_{name}_{tag}.log"
     if lib.exists():
         return BuildInfo(lib, 0.0, log.read_text() if log.exists() else "")
+    sources = _sources() if sources is None else [CSRC / src for src in sources]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     t0 = time.perf_counter()
-    out = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-                    for src, obj in zip(_sources(), objs)])
+    out = _run_all([[_nvcc(), *NVCC_FLAGS, *defines, "-c", str(src), "-o", str(obj)]
+                    for src, obj in zip(sources, objs)])
     out += _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
     for obj in objs:
@@ -133,16 +153,33 @@ def _build() -> BuildInfo:
     return BuildInfo(lib, seconds, out)
 
 
-@functools.cache
-def library() -> tuple[ctypes.CDLL, BuildInfo]:
-    """Build (or reuse) and load the kernel library; argtypes declared."""
-    info = _build()
+def _load(info: BuildInfo) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(info.path))
     for name, argtypes in _ENTRIES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, info
+        fn = getattr(lib, name, None)  # a library of a shape made on demand has fewer
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _library_of(shape: int) -> tuple[ctypes.CDLL, BuildInfo]:
+    if shape < DYN_ID_BASE:
+        return _load(info := _build()), info
+    n, nw, _ = shape_layout(shape)
+    defines = ("-DMSM_DYN_SHAPE", f"-DMSM_DYN_ID={shape}", f"-DMSM_DYN_NL={n}",
+               f"-DMSM_DYN_NW={nw}", f"-DMSM_DYN_TAIL={12 * n % 32}")
+    sources = ["montmul.cu"] + (["curve.cu", "edwards.cu"] if n <= CURVE_MAX_LIMBS else [])
+    info = _build(f"shape{n}x{nw}", sources, defines)
+    return _load(info), info
+
+
+def library(shape: int | None = None) -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build (or reuse) and load the kernel library of field shape ``shape``
+    (an ID of ``field_shape``; None or a shape of FIELD_SHAPES: the main
+    library, which also holds the scalar kernels), argtypes declared."""
+    return _library_of(shape if shape is not None and shape >= DYN_ID_BASE else 1)
 
 
 def check(code: int, name: str) -> None:
@@ -205,8 +242,12 @@ def flags(t, W: int, name: str) -> None:
 
 
 def _fits(p: int, nw: int, carry: bool) -> bool:
-    top = 1 << (32 * nw)
-    return 2 * p < top <= 4 * p if carry else 4 * p < top
+    """Whether p fits a main-library shape of nw words, by p's top word as
+    csrc/field.cuh::fits reads it: 4p < 2^(32 nw), or (carry) 2p < 2^(32 nw)
+    <= 4p, each with the margin that keeps the CIOS accumulator a 2^32 + p
+    within nw + 1 words (top below 0x3FFFFFFF, or below 0x7FFFFFFF)."""
+    top = p >> (32 * (nw - 1))
+    return 0x40000000 <= top < 0x7FFFFFFF if carry else top < 0x3FFFFFFF
 
 
 def _shape_name(sid: int) -> str:
@@ -215,19 +256,43 @@ def _shape_name(sid: int) -> str:
     return f"n = {n} (R = 2^{12 * n}, {bound})"
 
 
+def shape_layout(sid: int) -> tuple[int, int, bool]:
+    """(limbs n, register words NW, carry) of a field shape's ID."""
+    if sid in FIELD_SHAPES:
+        return FIELD_SHAPES[sid]
+    n, nw = divmod(sid - DYN_ID_BASE, 32)
+    if sid < DYN_ID_BASE or not 1 <= n <= MAX_LIMBS:
+        raise ValueError(f"no field shape has the ID {sid}")
+    return n, nw, False
+
+
 @functools.cache
 def field_shape(F) -> int:
-    """The ID of the kernels' field shape for a MontgomeryFp (csrc/field.cuh),
-    derived from its limb layout and p; other fields are refused with the
-    shapes that exist."""
+    """The ID of the kernels' field shape for a MontgomeryFp (csrc/field.cuh):
+    one of FIELD_SHAPES, derived from its limb layout and p, or else the ID
+    of a shape made on demand for its n and p (n = 1..63, w = 12). Fields
+    outside that domain are refused."""
     for sid, (n, nw, carry) in FIELD_SHAPES.items():
         if F.w == 12 and F.n == n and _fits(F.p, nw, carry):
             return sid
-    raise ValueError(
-        "CUDA field kernels take w = 12 limbs in one of the shapes "
-        f"{'; '.join(map(_shape_name, FIELD_SHAPES))}; this field has w = {F.w}, n = {F.n}, "
-        f"a {F.p.bit_length()}-bit p"
-    )
+    if F.w != 12 or not 1 <= F.n <= MAX_LIMBS or F.R <= 32 * F.p:
+        raise ValueError(
+            f"CUDA field kernels take w = 12 limbs, n = 1..{MAX_LIMBS}, R > 32p; this field has "
+            f"w = {F.w}, n = {F.n}, a {F.p.bit_length()}-bit p"
+        )
+    nw = max((12 * F.n) // 32, -(-(F.p.bit_length() + 3) // 32))  # 8p < 2^(32 NW)
+    return DYN_ID_BASE + 32 * F.n + nw
+
+
+def curve_shape(F) -> int:
+    """field_shape(F) where the curve kernels are built for it (n <= 33); a
+    ValueError that names the limit otherwise."""
+    if F.n > CURVE_MAX_LIMBS:
+        raise ValueError(
+            f"the CUDA curve kernels take fields of up to n = {CURVE_MAX_LIMBS} limbs (BLS12-381's "
+            f"base field; wider shapes would spill their registers); this field has n = {F.n}"
+        )
+    return field_shape(F)
 
 
 @functools.cache
@@ -235,15 +300,16 @@ def field_words(F, curve_mont: tuple[int, int] = (0, 0), small: int = 0) -> ctyp
     """FieldConsts words (csrc/field.cuh) for a MontgomeryFp, packed once per
     field and curve constants and read only by the host: p, 2p, R mod p, the
     two Montgomery-form curve constants, -p^-1 mod 2^32 and one plain-integer
-    curve constant. The kernels compute with the limb code's own R = 2^(12 n)
-    for the field shapes in FIELD_SHAPES; other fields are refused."""
+    curve constant (0 on a shape made on demand: the curve kernels then take
+    the first Montgomery-form constant by a product). The kernels compute
+    with the limb code's own R = 2^(12 n) on every field shape."""
     sid = field_shape(F)
-    nw = FIELD_SHAPES[sid][1]
+    nw = shape_layout(sid)[1]
     words = []
     for v in (F.p, 2 * F.p, F.mont_one, *curve_mont):
         words += [(v >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
     words += [(-pow(F.p, -1, 1 << 32)) % (1 << 32), small]
-    lib, _ = library()
+    lib, _ = library(sid)
     if len(words) != lib.msm_field_const_words(sid):
         raise RuntimeError("FieldConsts layout mismatch between Python and csrc/field.cuh")
     return ints(words, ctypes.c_uint32)
@@ -259,7 +325,8 @@ def codec_arg(F, codec) -> int:
 
     cid = codec_id(codec)
     lib, _ = library()
-    if lib.msm_codec_rows(field_shape(F), cid) != codec.rows:
+    sid = field_shape(F)
+    if sid >= DYN_ID_BASE or lib.msm_codec_rows(sid, cid) != codec.rows:
         built = [f"{name} ({lib.msm_codec_rows(sid, i)} rows) on {_shape_name(sid)}"
                  for sid in FIELD_SHAPES for name, i in CODEC_IDS.items()
                  if lib.msm_codec_rows(sid, i) > 0]

@@ -1,16 +1,18 @@
 """Host twisted-Edwards curve (a = -1): -x^2 + y^2 = 1 + d x^2 y^2, in
 extended coordinates (X, Y, Z, T), identity (0, 1, 1, 0).
 
-Mirror of ``msm_zprize_tpu/bigint/edwards.py::EdwardsCurve``'s group law
-(add-2008-hwcd-3, k = 2d) and ``random``.
+Mirror of ``msm_zprize_tpu/bigint/edwards.py::EdwardsCurve``: the group law
+(add-2008-hwcd-3, k = 2d), ``random`` (the same draws) and the oracle's
+``eq``, ``neg``, ``sub``, ``is_on_curve`` and ``is_in_subgroup``.
+``EdwardsParams`` is the port's own (``curves/params.py``).
 """
 
 from __future__ import annotations
 
 from ..curves.params import EdwardsParams
-from .field import inverse, random_field, sqrt
+from .field import Field, inverse, random_field, sqrt
 
-__all__ = ["EdwardsCurve"]
+__all__ = ["EdwardsParams", "EdwardsCurve"]
 
 
 class EdwardsCurve:
@@ -18,6 +20,7 @@ class EdwardsCurve:
 
     def __init__(self, params: EdwardsParams):
         self.params = params
+        self.F = Field(params.modulus)
         self.p = params.modulus
         self.d = params.d % params.modulus
         self.k = 2 * self.d % params.modulus
@@ -25,6 +28,31 @@ class EdwardsCurve:
     def is_zero(self, P) -> bool:
         X, Y, Z, _ = P
         return X % self.p == 0 and (Y - Z) % self.p == 0
+
+    def eq(self, P, Q) -> bool:
+        p = self.p
+        X1, Y1, Z1, _ = P
+        X2, Y2, Z2, _ = Q
+        return (X1 * Z2 - X2 * Z1) % p == 0 and (Y1 * Z2 - Y2 * Z1) % p == 0
+
+    def neg(self, P):
+        X, Y, Z, T = P
+        return (-X) % self.p, Y, Z, (-T) % self.p
+
+    def sub(self, P, Q):
+        return self.add(P, self.neg(Q))
+
+    def is_on_curve(self, P) -> bool:
+        """-X^2 + Y^2 = Z^2 + d T^2 and T Z = X Y, Z != 0."""
+        p = self.p
+        X, Y, Z, T = P
+        if Z % p == 0:
+            return False
+        lhs = (-X * X + Y * Y - Z * Z - self.d * T % p * T) % p
+        return lhs == 0 and (T * Z - X * Y) % p == 0
+
+    def is_in_subgroup(self, P) -> bool:
+        return self.is_zero(self.scale(self.params.order, P))
 
     def add(self, P, Q):
         """Strongly unified: doubles and adds the identity alike."""
@@ -60,7 +88,7 @@ class EdwardsCurve:
         zi = inverse(Z, self.p)
         return X * zi % self.p, Y * zi % self.p
 
-    def random(self, rng):
+    def random(self, rng=None):
         """y uniform until (y^2 - 1) / (d y^2 + 1) is a square, x its root
         with a random sign, then the cofactor cleared."""
         p = self.p
@@ -72,7 +100,7 @@ class EdwardsCurve:
             x = sqrt((y * y - 1) * inverse(denom, p) % p, p)
             if x is None:
                 continue
-            if rng.getrandbits(1):
+            if rng is not None and rng.getrandbits(1):
                 x = (-x) % p
             P = self.scale(self.params.cofactor, self.from_affine((x, y)))
             if self.is_zero(P):

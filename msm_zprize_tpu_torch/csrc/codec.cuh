@@ -119,7 +119,8 @@ struct RowStore {
 // Each entry: a field shape, a codec id and the row layout of that codec on
 // that field. K13 (montmul.cu) is built for every entry, K14 (the curve
 // units, curve.cuh) for every entry of a Weierstrass field (Fp32, Fp33,
-// Fp22c); msm_codec_rows reads the rows from here.
+// Fp22c); msm_codec_rows reads the rows from here. A library built for a
+// shape made on demand (field.cuh's DynShape) has no entry.
 
 template <class S_, int ID, class C_>
 struct CodecEntry {
@@ -128,12 +129,16 @@ struct CodecEntry {
   static constexpr int id = ID;
 };
 
+#ifdef MSM_DYN_SHAPE
+using CodecTable = std::tuple<>;  // a shape made on demand has limb storage only
+#else
 using CodecTable = std::tuple<CodecEntry<Fp32, CODEC_PACKED31, Packed31<13>>,
                               CodecEntry<Fp22, CODEC_PACKED31, Packed31<9>>,
                               CodecEntry<Fp22, CODEC_FMA51, Fma51Rows>,
                               CodecEntry<Fp33, CODEC_PACKED31, Packed31<13>>,
                               CodecEntry<Fp22c, CODEC_PACKED31, Packed31<9>>,
                               CodecEntry<Fp22c, CODEC_FMA51, Fma51Rows>>;
+#endif
 
 template <class Fn, class... E>
 int with_codec_in(int shape, int codec, Fn& fn, std::tuple<E...>*) {

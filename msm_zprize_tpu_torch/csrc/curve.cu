@@ -1,28 +1,41 @@
 // K3, K4, K4m, K5, K6, K7 on native storage of BLS12-377's base field:
 // (32, W) 12-bit limb tensors. The formulas, the kernels and the bounds
 // argument are in curve.cuh; this unit instantiates them for
-// LimbStore<Fp32>, and holds the one C entry of every curve unit.
+// LimbStore<Fp32>, and holds the one C entry of every curve unit. Built with
+// -DMSM_DYN_SHAPE (_build.py, a shape made on demand), it instantiates them
+// for LimbStore<DynShape> alone.
 #include "curve.cuh"
 
 namespace msm {
 namespace wei {
-
-int limbs_fp32(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W, int arg,
-               int group, const uint32_t* consts, cudaStream_t s) {
-  return launch_curve<LimbStore<Fp32>>(kernel, ptrs, lds, W, arg, group, consts, s);
-}
 
 // The curve units and the (shape ID, codec id; 0: limbs) each takes.
 struct CurveUnitEntry {
   int shape, codec;
   CurveUnit* launch;
 };
+
+#ifdef MSM_DYN_SHAPE
+// A library built for one shape made on demand (field.cuh's DynShape, n <=
+// 33): this unit alone, on limbs.
+int limbs_dyn(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W, int arg,
+              int group, const uint32_t* consts, cudaStream_t s) {
+  return launch_curve<LimbStore<DynShape>>(kernel, ptrs, lds, W, arg, group, consts, s);
+}
+constexpr CurveUnitEntry CURVE_UNITS[] = {{DynShape::ID, 0, limbs_dyn}};
+#else
+int limbs_fp32(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W, int arg,
+               int group, const uint32_t* consts, cudaStream_t s) {
+  return launch_curve<LimbStore<Fp32>>(kernel, ptrs, lds, W, arg, group, consts, s);
+}
+
 constexpr CurveUnitEntry CURVE_UNITS[] = {
     {Fp32::ID, 0, limbs_fp32},   {Fp32::ID, CODEC_PACKED31, packed_fp32},
     {Fp33::ID, 0, limbs_fp33},   {Fp33::ID, CODEC_PACKED31, packed_fp33},
     {Fp22c::ID, 0, limbs_fp22c}, {Fp22c::ID, CODEC_PACKED31, packed_fp22c},
     {Fp22c::ID, CODEC_FMA51, fma51_fp22c},
 };
+#endif
 
 // fn(S{}) for the shape S with ID `shape` when a curve unit builds the
 // storage (shape, codec), else -1.

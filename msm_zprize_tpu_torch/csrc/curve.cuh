@@ -96,8 +96,15 @@
 namespace msm {
 namespace wei {
 
+// 3b a, by f_small's additions when 3b is a small plain integer (fc.small);
+// on a shape made on demand fc.small may be 0, and then 3b is no small
+// integer and a takes one product by its Montgomery form 3b R (fc.curve[0]),
+// as CurveKernels does with b3_small=None (pallas_curve.py:211-215).
 template <class S>
 __device__ __forceinline__ Fe<S> mul_b3(const Fe<S>& a, const FieldConsts<S>& fc) {
+  if constexpr (S::DYN) {
+    if (fc.small == 0) return mont_mul(a, fe_from<S>(fc.curve[0]), fc);
+  }
   return f_small(a, fc.small, fc);
 }
 
@@ -215,6 +222,9 @@ proj_add_kernel(const __grid_constant__ Operands ops, int64_t W,
 // bit, two adds shorter on K5's critical path).
 template <class S>
 __device__ __forceinline__ Fe<S> mul_b3_lead(const Fe<S>& a, const FieldConsts<S>& fc) {
+  if constexpr (S::DYN) {
+    if (fc.small == 0) return mont_mul(a, fe_from<S>(fc.curve[0]), fc);  // as mul_b3
+  }
   const uint32_t k = fc.small;
   Fe<S> r = a;
   for (int b = 30 - __clz(k); b >= 0; --b) {
@@ -566,8 +576,12 @@ constexpr int CURVE_K3 = 3, CURVE_K4 = 4, CURVE_K5 = 5, CURVE_K6 = 6, CURVE_K7 =
 // 1.9x of the one-thread kernel), the one-thread kernel on Pallas's 8
 // words (G = 2 22 % behind); the step at 12,288 is K4's, as no K7 path runs
 // between. G = 3 won no K7 width.
+// A shape made on demand (field.cuh's DynShape) has no measurements: every
+// kernel takes one instance there, G = 2 (12 words' pick at the widest
+// widths of K3, K4/K4m and K7) and K5's G = 4.
 template <class S>
 int curve_group(int kernel, int64_t W, bool masked, bool rows) {
+  if constexpr (S::DYN) return kernel == CURVE_K5 || kernel == CURVE_K6 ? 4 : 2;
   if (kernel == CURVE_K3) {
     if (W <= 6144) return 6;
     if (S::NW == 8) return W <= (rows ? 24576 : 32768) ? 3 : 1;
@@ -583,21 +597,30 @@ int curve_group(int kernel, int64_t W, bool masked, bool rows) {
 }
 
 // The instances built on shape S (on limbs, or rows), by G: exactly those
-// curve_group picks (the one-thread K3, K4 and K7 on 8-word shapes, and K3
-// on BLS12-377's rows).
+// curve_group picks (the one-thread K3, K4 and K7
+// on 8-word shapes, and K3 on BLS12-377's rows; G = 2 alone, and K5's 4, on
+// a shape made on demand).
+using DynGroups = std::integer_sequence<int, 2>;
 template <class S, bool ROWS>
 using K3Groups = std::conditional_t<
-    S::NW == 8, std::integer_sequence<int, 1, 3, 6>,
-    std::conditional_t<ROWS && S::ID == Fp32::ID, std::integer_sequence<int, 1, 2, 3, 6>,
-                       std::integer_sequence<int, 2, 3, 6>>>;
+    S::DYN, DynGroups,
+    std::conditional_t<
+        S::NW == 8, std::integer_sequence<int, 1, 3, 6>,
+        std::conditional_t<ROWS && S::ID == Fp32::ID, std::integer_sequence<int, 1, 2, 3, 6>,
+                           std::integer_sequence<int, 2, 3, 6>>>>;
 template <class S>
-using K4Groups = std::conditional_t<S::NW == 8, std::integer_sequence<int, 1, 2, 6>,
-                                    std::integer_sequence<int, 2, 6>>;
-using K4mGroups = std::integer_sequence<int, 2, 6>;
+using K4Groups = std::conditional_t<
+    S::DYN, DynGroups,
+    std::conditional_t<S::NW == 8, std::integer_sequence<int, 1, 2, 6>,
+                       std::integer_sequence<int, 2, 6>>>;
+template <class S>
+using K4mGroups = std::conditional_t<S::DYN, DynGroups, std::integer_sequence<int, 2, 6>>;
 using K5Groups = std::integer_sequence<int, 4>;
 template <class S>
-using K7Groups = std::conditional_t<S::NW == 8, std::integer_sequence<int, 1, 6>,
-                                    std::integer_sequence<int, 2, 6>>;
+using K7Groups = std::conditional_t<
+    S::DYN, DynGroups,
+    std::conditional_t<S::NW == 8, std::integer_sequence<int, 1, 6>,
+                       std::integer_sequence<int, 2, 6>>>;
 
 // The built instances of kernel (K3, K4 with `masked`, K5, K7) on shape S
 // (on limbs, or rows) into out[0, cap); returns how many there are (0 for a
@@ -611,7 +634,7 @@ int built_groups(int kernel, bool masked, bool rows, int* out, int cap) {
   if (kernel == CURVE_K5) return list_groups(K5Groups{}, out, cap);
   if (kernel == CURVE_K7) return list_groups(K7Groups<S>{}, out, cap);
   if (kernel != CURVE_K4) return 0;
-  return masked ? list_groups(K4mGroups{}, out, cap) : list_groups(K4Groups<S>{}, out, cap);
+  return masked ? list_groups(K4mGroups<S>{}, out, cap) : list_groups(K4Groups<S>{}, out, cap);
 }
 
 template <class St, int G>
@@ -681,7 +704,7 @@ int launch_curve(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W
       const auto k4 = [&](auto G, auto masked) {
         launch_k4<St, decltype(G)::value, decltype(masked)::value>(ptrs, lds, W, fc, s);
       };
-      if (!(arg != 0 ? with_group(K4mGroups{}, g, [&](auto G) { k4(G, std::true_type{}); })
+      if (!(arg != 0 ? with_group(K4mGroups<S>{}, g, [&](auto G) { k4(G, std::true_type{}); })
                      : with_group(K4Groups<S>{}, g, [&](auto G) { k4(G, std::false_type{}); }))) {
         return static_cast<int>(cudaErrorInvalidValue);
       }

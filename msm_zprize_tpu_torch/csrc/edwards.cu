@@ -52,7 +52,13 @@ namespace msm {
 namespace ed {
 
 // ed-on-bls12-377's base field (n = 22, R = 2^264) is the one Edwards field
+// of the main library; a library built for a shape made on demand (n <= 33)
+// takes that shape.
+#ifdef MSM_DYN_SHAPE
+using S = DynShape;
+#else
 using S = Fp22;
+#endif
 using Fe = msm::Fe<S>;
 using FieldConsts = msm::FieldConsts<S>;
 
@@ -238,7 +244,8 @@ constexpr int K12_GROUP = 4;
 }  // namespace msm
 
 // Each entry point takes a field shape's ID (field.cuh) and refuses any but
-// Fp22's, and field constants that do not fit it (a Pallas field: n = 22 too).
+// S's (Fp22, or the DynShape of a library made on demand), and field
+// constants that do not fit it (a Pallas field: n = 22 too).
 extern "C" int msm_ed_pair_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, int shape,
                                const uint32_t* consts, void* stream) {
   using namespace msm;

@@ -17,10 +17,11 @@
 //
 // Field shapes. Everything is a template on Shape<ID, NL, NW, TAIL, CARRY>:
 // NL storage limbs, NW 32-bit register words (enough for values < 2p), and
-// R = 2^(12 NL) = 2^(32 NW + TAIL). The Montgomery product must use exactly
-// this R: values cross freely between kernels and plain torch ops
-// (ones_mont, constants, pack, the K1 twin), so any other R would be wrong
-// wherever they meet.
+// R = 2^(12 NL) = 2^(32 RW + TAIL): RW full 32-bit CIOS rounds and one
+// TAIL-bit round. The Montgomery product must use exactly this R: values
+// cross freely between kernels and plain torch ops (ones_mont, constants,
+// pack, the K1 twin), so any other R would be wrong wherever they meet.
+// The four shapes of the main library have NW = RW:
 //   Fp32  = Shape<1, 32, 12, 0>:  R = 2^384 (BLS12-377's base field, p < 2^377);
 //   Fp22  = Shape<2, 22, 8, 8>:   R = 2^264 = 2^256 * 2^8 (fields with
 //                                 4p < 2^256: ed-on-bls12-377's, p < 2^253);
@@ -29,12 +30,24 @@
 //   Fp22c = Shape<4, 22, 8, 8, true>: R = 2^264 for fields with
 //                                 2p < 2^256 <= 4p (Pallas's base field,
 //                                 p = 2^254 + ~2^125): the CARRY shape.
-// mont_mul runs NW full 32-bit CIOS rounds and, when TAIL > 0, one TAIL-bit
-// reduction round. Fp22 and Fp22c have the same NL, so the limb count cannot
+// Every other field that the limb code takes (n = ceil((bits(p) + 5) / 12)
+// limbs, n = 1..63, so R > 32p) gets a shape made on demand, DynShape, built
+// into a library of its own (_build.field_shape, _build.library): ID =
+// DYN_ID_BASE + 32 NL + NW, TAIL = 12 NL mod 32, RW = 12 NL div 32 (0 for
+// n <= 2), and NW the fewest words with 8p < 2^(32 NW), at least RW. Since
+// R > 32p, 8p < 2^(32 RW + TAIL - 2), so NW is RW or RW + 1: a value may
+// need one word more than the full rounds reduce (secp256k1: n = 22, R =
+// 2^264, 2p > 2^256, NW = 9; goldilocks: n = 6, R = 2^72, NW = 3). mont_mul
+// multiplies by every one of b's NW words and reduces after the first RW
+// (below).
+// mont_mul runs NW multiply rounds, a 32-bit reduction after each of the
+// first RW, and, when TAIL > 0, one TAIL-bit reduction round. Fp22 and Fp22c
+// have the same NL, so the limb count cannot
 // name a shape: every C entry takes the shape's ID, which the Python side
 // derives once from (n, p) (_build.field_shape), and refuses constants that
 // do not fit the shape it names (fits<S>: p's top word says whether 4p, or
-// only 2p, stays below 2^(32 NW)). Other fields are refused on both sides.
+// only 2p, stays below 2^(32 NW); 8p on a DynShape). Other fields are refused
+// on both sides.
 //
 // Bounds, argued once (R > 16p in every shape; 2p < 2^(32 NW)):
 //  * Every load returns a value < 2p (load_reduced; for CARRY shapes load_fe
@@ -50,15 +63,20 @@
 //    mod 2^(32 NW) to exactly that value.
 //  * mont_mul on a, b < 4p (in a CARRY shape on a, b < 2p, as every value
 //    there is) returns (a*b + Q*p) / R for the unique Q < R that
-//    makes the division exact (CIOS picks Q digit by digit: NW 32-bit
+//    makes the division exact (CIOS picks Q digit by digit: RW 32-bit
 //    digits, then one TAIL-bit digit), so it is the same integer as the limb
 //    code's product and is < 16p^2/R + p < 2p. After full round i the
 //    accumulator is (a*b_{<=i} + Q_{<=i}*p) / 2^(32(i+1)) < a + p < 5p, so
-//    NW + 1 words suffice (also for a 2^32 b_i + a + p mid-round: a < 2^383
-//    in Fp33, a < 2p < 2^255.1 in Fp22c). The tail round adds m*p
-//    with m < 2^TAIL (< 5p + 2^TAIL p, in NW + 1 words) and shifts right by
-//    TAIL bits; the result is < 2p, so the bits shifted in above word NW-1
-//    are 0.
+//    NW + 1 words suffice for the mid-round a b_i + t < a 2^32 + p where
+//    a 2^32 + p < 2^(32 NW + 32): fits<S> keeps p's top word below
+//    0x3FFFFFFF (a < 4p) or, in a CARRY shape, 0x7FFFFFFF (a < 2p), and a
+//    DynShape has 8p < 2^(32 NW). Where NW = RW + 1, the last multiply
+//    round adds a*b_RW unreduced: it is the term of b's top word after the
+//    RW divisions by 2^32, and a*b_RW + 5p < 4p 2^32 + 5p still fits NW + 1
+//    words. The tail round adds m*p with m < 2^TAIL (< 2^32 p more, in NW
+//    + 1 words) and shifts right by TAIL bits; the result is < 2p, so the
+//    bits shifted in above word NW-1 are 0. With n <= 2 (RW = 0) the product
+//    is the one multiply round and the tail round alone.
 //  * So a formula that starts from values < 2p keeps every intermediate
 //    < 2p, and its outputs meet its own input contract: a chained formula
 //    (k doublings in one launch) re-enters with the same bound each step.
@@ -75,6 +93,9 @@ namespace msm {
 constexpr int LIMB_BITS = 12;
 constexpr uint32_t LIMB_MASK = (1u << LIMB_BITS) - 1;
 
+// IDs from here up name a shape made on demand (DynShape).
+constexpr int DYN_ID_BASE = 1024;
+
 template <int ID_, int NL_, int NW_, int TAIL_, bool CARRY_ = false>
 struct Shape {
   static constexpr int ID = ID_;        // the C entries' name for the shape
@@ -82,14 +103,27 @@ struct Shape {
   static constexpr int NW = NW_;        // 32-bit register words per element
   static constexpr int TAIL = TAIL_;    // bits of the last reduction round
   static constexpr bool CARRY = CARRY_;  // 4p >= 2^(32 NW): keep the top carry
-  static_assert(LIMB_BITS * NL == 32 * NW + TAIL, "R = 2^(12 NL) must equal 2^(32 NW + TAIL)");
+  static constexpr int RW = (LIMB_BITS * NL - TAIL) / 32;  // full reduction rounds
+  static constexpr bool DYN = ID >= DYN_ID_BASE;  // made on demand: 8p < 2^(32 NW)
+  static_assert(LIMB_BITS * NL == 32 * RW + TAIL, "R = 2^(12 NL) must equal 2^(32 RW + TAIL)");
   static_assert(TAIL >= 0 && TAIL < 32, "the tail round reduces less than one word");
+  static_assert(NW == RW || (DYN && NW == RW + 1 && !CARRY), "NW is RW, or RW + 1 on a DynShape");
+  static_assert(NW == RW || TAIL > 0, "b's top word is reduced by the tail round");
 };
 using Fp32 = Shape<1, 32, 12, 0>;
 using Fp22 = Shape<2, 22, 8, 8>;
 using Fp33 = Shape<3, 33, 12, 12>;
 using Fp22c = Shape<4, 22, 8, 8, true>;
+#ifdef MSM_DYN_SHAPE
+// A library built for one shape made on demand (_build.py passes
+// -DMSM_DYN_SHAPE and its -DMSM_DYN_ID, _NL, _NW, _TAIL): its entries take
+// that shape alone.
+using DynShape = Shape<MSM_DYN_ID, MSM_DYN_NL, MSM_DYN_NW, MSM_DYN_TAIL>;
+static_assert(DynShape::DYN, "a shape made on demand takes an ID from DYN_ID_BASE up");
+using ShapeTable = std::tuple<DynShape>;
+#else
 using ShapeTable = std::tuple<Fp32, Fp22, Fp33, Fp22c>;
+#endif
 
 // Field and curve constants, filled from the Python objects (never literals).
 template <class S>
@@ -114,10 +148,17 @@ static_assert(consts_match(static_cast<ShapeTable*>(nullptr)),
 
 // Whether the host's field constants (p's words first) fit S: p's top word
 // says whether 4p < 2^(32 NW) (top < 2^30), as every shape but a CARRY one
-// needs, or 2p < 2^(32 NW) <= 4p (2^30 <= top < 2^31), as a CARRY shape does.
+// needs, or 2p < 2^(32 NW) <= 4p (2^30 <= top < 2^31), as a CARRY shape
+// does, each with the margin that keeps mont_mul's accumulator a 2^32 + p
+// in NW + 1 words (top < 0x3FFFFFFF; top < 0x7FFFFFFF: ed25519's field, p =
+// 2^255 - 19, top 0x7FFFFFFF, overflowed it as a CARRY shape); a DynShape
+// needs 8p < 2^(32 NW) (top < 2^29).
 template <class S>
 inline bool fits(const uint32_t* consts) {
-  return (consts[S::NW - 1] >> 30) == (S::CARRY ? 1u : 0u);
+  const uint32_t top = consts[S::NW - 1];
+  if constexpr (S::DYN) return (top >> 29) == 0;
+  if constexpr (S::CARRY) return top >= 0x40000000u && top < 0x7FFFFFFFu;
+  return top < 0x3FFFFFFFu;
 }
 
 template <class Fn, class... S>
@@ -305,6 +346,8 @@ __device__ __forceinline__ void store_fe(const Fe<S>& a, int32_t* __restrict__ d
 }
 
 // ---- Montgomery product (CIOS over 32-bit words, then the tail round) --------
+// NW multiply rounds, a 32-bit reduction after each of the first RW (all of
+// them but on a DynShape with NW = RW + 1), then the TAIL-bit round.
 
 template <class S>
 __device__ __forceinline__ Fe<S> mont_mul(const Fe<S>& a, const Fe<S>& b, const FieldConsts<S>& fc) {
@@ -322,6 +365,7 @@ __device__ __forceinline__ Fe<S> mont_mul(const Fe<S>& a, const Fe<S>& b, const 
       c >>= 32;
     }
     t[NW] += static_cast<uint32_t>(c);
+    if (i >= S::RW) continue;  // b's top word on a DynShape with NW = RW + 1: no reduction
     const uint32_t m = t[0] * fc.pinv;
     c = (static_cast<uint64_t>(m) * fc.p[0] + t[0]) >> 32;  // low word cancels
 #pragma unroll

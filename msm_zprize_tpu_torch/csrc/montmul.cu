@@ -41,9 +41,11 @@
 // its fma51 MSM on Fma51Codec). Bound as K1: bytes and launches at 65,536
 // lanes, with 13 (10) rows a value instead of 32 (22).
 //
-// K1 and K8 are instantiated for every field shape of field.cuh; the entry
-// points take the shape's ID (and K13 the codec id) and refuse any other,
-// and field constants that do not fit the shape named.
+// K1 and K8 are instantiated for every field shape of field.cuh: the four of
+// the main library, or the one shape made on demand of a library built for
+// it (n = 1..63, every field the limb code takes; K8 one thread a lane from
+// 13 words up). The entry points take the shape's ID (and K13 the codec id)
+// and refuse any other, and field constants that do not fit the shape named.
 #include "codec.cuh"
 
 namespace msm {
@@ -155,6 +157,14 @@ constexpr unsigned WARP_ALL = 0xffffffffu;
 template <class S>
 __host__ __device__ constexpr int exp_digits() {
   return (32 * S::NW + DIGIT_BITS - 1) / DIGIT_BITS;
+}
+
+// Whether K8 runs S on a warp's digits (at most EXP_DIGITS_MAX, so 12 words:
+// every shape of the main library and DynShapes up to p ~ 2^381), or on one
+// thread a lane (exp_thread_kernel below: the wider DynShapes, n <= 63).
+template <class S>
+constexpr bool exp_warp() {
+  return exp_digits<S>() <= EXP_DIGITS_MAX;
 }
 
 // The host's words (cuda_mul._exp_args): the op list, then the chain's
@@ -300,6 +310,44 @@ exp_warp_kernel(const int32_t* __restrict__ x, int64_t ldx, int32_t* __restrict_
   if (t == 0) store_fe(digits_to_fe<S>(sh + EXP_X * ND), out, ldo, lane);
 }
 
+// K8 on one thread a lane, for the shapes too wide for a warp's digits
+// (DynShapes of 13 to 24 words: p up to 2^751, e up to 2^768): the same op
+// list, walked with field.cuh's mont_mul in R itself (so no domain change),
+// the running value in registers and the slots (the odd powers, x^2) in the
+// thread's local memory. A simple design that is right first: the chain is
+// one thread's dependent products.
+constexpr int EXP_WIDE_OP_WORDS = 320;  // 1,280 ops: any e < 2^768 needs < 1,000
+constexpr int EXP_WIDE_BITS = 768;
+
+struct ExpWideArgs {
+  int32_t nops;
+  uint32_t ops[EXP_WIDE_OP_WORDS];
+  __device__ int op(int i) const { return (ops[i >> 2] >> (8 * (i & 3))) & 0xFF; }
+};
+
+template <class S>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+exp_thread_kernel(const int32_t* __restrict__ x, int64_t ldx, int32_t* __restrict__ out,
+                  int64_t ldo, int64_t W, const __grid_constant__ ExpWideArgs ea,
+                  const __grid_constant__ FieldConsts<S> fc) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= W) return;
+  Fe<S> slots[EXP_X + 1];
+  Fe<S> cur = load_fe<S>(x, ldx, lane, fc);  // < 4p: mont_mul takes it
+  if (ea.nops == 0) cur = fe_from<S>(fc.one);  // e = 0
+  for (int i = 0; i < ea.nops; ++i) {
+    const int op = ea.op(i), slot = op & 31;
+    if (op >> 6 == EXP_MUL) {
+      cur = mont_mul(cur, slot == EXP_CUR ? cur : slots[slot], fc);
+    } else if (op >> 6 == EXP_SAVE) {
+      slots[slot] = cur;
+    } else {
+      cur = slots[slot];
+    }
+  }
+  store_fe(cond_sub(cur, fc.two_p), out, ldo, lane);  // x itself (e = 1) may be >= 2p
+}
+
 // The probe's exponent: bit i of e is bit (i % 32) of w[i / 32], i < nbits.
 struct ExpBits {
   uint32_t w[EXP_BITS / 32];
@@ -353,6 +401,15 @@ int launch_exp(const uint64_t* ptrs, const int64_t* lds, int64_t W, const ExpArg
 }
 
 template <class S>
+int launch_exp_thread(const uint64_t* ptrs, const int64_t* lds, int64_t W, const ExpWideArgs& e,
+                      const uint32_t* consts, cudaStream_t stream) {
+  exp_thread_kernel<S><<<grid_for(W), BLOCK_THREADS, 0, stream>>>(
+      reinterpret_cast<const int32_t*>(ptrs[0]), lds[0], reinterpret_cast<int32_t*>(ptrs[1]),
+      lds[1], W, e, field_consts_from_host<S>(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class S>
 int launch_exp_probe(const uint64_t* ptrs, const int64_t* lds, int64_t W, const ExpBits& e,
                      const uint32_t* consts, cudaStream_t stream) {
   exp_probe_kernel<S><<<grid_for(W), BLOCK_THREADS, 0, stream>>>(
@@ -390,16 +447,27 @@ extern "C" int msm_montmul_rows(const uint64_t* ptrs, const int64_t* lds, int64_
 }
 
 // K8. ptrs: {x, out}; lds: {ldx, ldo}; args: the words of ExpArgs (the op
-// list of e's chain, the chain's digit constants; msm_exp_layout).
+// list of e's chain, the chain's digit constants), or of ExpWideArgs (the op
+// list) on a shape that K8 runs one thread a lane (msm_exp_layout says which).
 extern "C" int msm_exp_const(const uint64_t* ptrs, const int64_t* lds, int64_t W, int shape,
                              const uint32_t* args, const uint32_t* consts, void* stream) {
   using namespace msm;
-  ExpArgs e;
-  std::memcpy(&e, args, sizeof e);
-  if (e.nops < 0 || e.nops > 4 * EXP_OP_WORDS) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return refused(with_field(shape, consts, [&](auto f) {
-    return launch_exp<decltype(f)>(ptrs, lds, W, e, consts, s);
+    using S = decltype(f);
+    if constexpr (exp_warp<S>()) {
+      ExpArgs e;
+      std::memcpy(&e, args, sizeof e);
+      if (e.nops < 0 || e.nops > 4 * EXP_OP_WORDS) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_exp<S>(ptrs, lds, W, e, consts, s);
+    } else {
+      ExpWideArgs e;
+      std::memcpy(&e, args, sizeof e);
+      if (e.nops < 0 || e.nops > 4 * EXP_WIDE_OP_WORDS) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      return launch_exp_thread<S>(ptrs, lds, W, e, consts, s);
+    }
   }));
 }
 
@@ -430,15 +498,22 @@ extern "C" int msm_codec_rows(int shape, int codec) {
   return msm::with_codec(shape, codec, [](auto e) { return decltype(e)::C::ROWS; });
 }
 
-// K8's host layout: {op words, digits max, exponent bits, words of ExpArgs},
-// and (shape >= 0) the digits of a value of that shape in the chain (-1: no
-// such shape).
+// K8's host layout: {op words, digits max, exponent bits, words of ExpArgs,
+// and the same three of ExpWideArgs: op words, exponent bits, words}, and
+// (shape >= 0) the digits of a value of that shape in the warp's chain, 0
+// where K8 runs the shape one thread a lane (-1: no such shape).
 extern "C" int msm_exp_layout(int shape, int* out) {
   using namespace msm;
   out[0] = EXP_OP_WORDS;
   out[1] = EXP_DIGITS_MAX;
   out[2] = EXP_BITS;
   out[3] = sizeof(ExpArgs) / sizeof(uint32_t);
-  return with_shape(shape, [](auto f) { return exp_digits<decltype(f)>(); });
+  out[4] = EXP_WIDE_OP_WORDS;
+  out[5] = EXP_WIDE_BITS;
+  out[6] = sizeof(ExpWideArgs) / sizeof(uint32_t);
+  return with_shape(shape, [](auto f) {
+    using S = decltype(f);
+    return exp_warp<S>() ? exp_digits<S>() : 0;
+  });
 }
 

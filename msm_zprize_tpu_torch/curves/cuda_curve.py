@@ -27,9 +27,10 @@ operands are ``(codec.rows, *batch)`` rows and the wrappers launch the same
 formulas on that storage (counted under the ``k14_*`` keys on
 ``PackedCodec``, ``k14_fma51_*`` on ``Fma51Codec``). The kernels are built
 for BLS12-377 (limbs and 13 packed rows), BLS12-381 (the same) and Pallas
-(limbs, 9 packed rows, 10 Fma51 pair rows); the wrappers name the field's
-shape (``_build.field_shape``) and the codec, and the C entry refuses any
-other pair. The twins decode the rows to digit planes, run the formulas
+(limbs, 9 packed rows, 10 Fma51 pair rows), and on limbs for every field of
+up to 33 limbs through a shape made on demand (``_build.curve_shape``; wider
+fields raise a ``ValueError`` naming the limit); the wrappers name the
+field's shape and the codec, and the C entry refuses any other pair. The twins decode the rows to digit planes, run the formulas
 and encode the result; the pass-through lanes keep the caller's rows bit
 for bit.
 """
@@ -93,8 +94,12 @@ class Storage:
         return a if self.codec is None else self.codec.from_digits(F, a)
 
     def words(self, W) -> object:
-        """The FieldConsts words of W's kernels."""
-        return _build.field_words(W.F, (W.b3_mont, 0), W.b3_small)
+        """The FieldConsts words of W's kernels (3b as a plain integer, or 0
+        where ``W.b3_small`` is None: the kernels then multiply by
+        ``W.b3_mont``, on a shape made on demand only)."""
+        if W.b3_small is None and _build.field_shape(W.F) < _build.DYN_ID_BASE:
+            raise ValueError("the curve kernels of the four main shapes take 3b as a small integer")
+        return _build.field_words(W.F, (W.b3_mont, 0), W.b3_small or 0)
 
     def codec_arg(self, F) -> int:
         """The codec id msm_curve takes (0: limbs), once a codec's rows are
@@ -109,8 +114,11 @@ class Storage:
 
 
 def _mul_b3(W, x):
-    """3b * x by double-and-add over field additions, as the kernels do."""
+    """3b * x by double-and-add over field additions, as the kernels do; a
+    product by 3b R where ``W.b3_small`` is None (3b no small integer)."""
     F = W.F
+    if W.b3_small is None:
+        return F.montmul_plain(x, F.const(W.b3_mont, x).expand_as(x))
     acc = None
     for bit in bin(W.b3_small)[2:]:
         acc = None if acc is None else F.add(acc, acc)
@@ -285,10 +293,11 @@ def launch(F, words, name, entry, ins, lds, width, batch, n_out, extra=(), n=Non
     device = ins[0].device
     outs = [torch.empty((n, width), dtype=torch.int32, device=device) for _ in range(n_out)]
     if width:
-        lib, _ = _build.library()
+        shape = _build.curve_shape(F)
+        lib, _ = _build.library(shape)
         code = getattr(lib, entry)(
             _build.ptrs(*ins, *outs), _build.ints(lds + [width] * n_out), width,
-            _build.field_shape(F), *extra, words, _build.stream_of(outs[0]),
+            shape, *extra, words, _build.stream_of(outs[0]),
         )
         _build.check(code, name)
         COUNTS[name] += 1
@@ -405,8 +414,9 @@ def _group_for(W, name: str, width: int) -> int:
     """G, the threads a point, of the instance that kernel ``name`` (K3,
     K4, K4m, K5, K7) launches with at ``width`` lanes on W's field and storage:
     the kernels' own table (csrc/curve.cuh::curve_group)."""
-    lib, _ = _build.library()
-    return lib.msm_curve_group(_build.field_shape(W.F), W.storage.codec_arg(W.F),
+    shape = _build.curve_shape(W.F)
+    lib, _ = _build.library(shape)
+    return lib.msm_curve_group(shape, W.storage.codec_arg(W.F),
                                KERNEL_IDS[name], width, int(name == K4M))
 
 
@@ -414,8 +424,8 @@ def _groups(W, name: str) -> tuple[int, ...]:
     """The Gs of the instances of kernel ``name`` (K3, K4, K4m, K5, K7)
     built on W's field and storage, as the kernels' library lists them
     (csrc/curve.cuh::K3Groups, K4Groups, K4mGroups, K5Groups, K7Groups)."""
-    lib, _ = _build.library()
-    shape, out = _build.field_shape(W.F), (ctypes.c_int * 8)()
+    shape, out = _build.curve_shape(W.F), (ctypes.c_int * 8)()
+    lib, _ = _build.library(shape)
     count = lib.msm_curve_groups(shape, W.storage.codec_arg(W.F), KERNEL_IDS[name],
                                  int(name == K4M), out, 8)
     if not 0 < count <= 8:

@@ -55,11 +55,10 @@ def montmul(F, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, W), dtype=torch.int32, device=x.device)
     if W == 0:
         return out
-    lib, _ = _build.library()
-    code = lib.msm_montmul(
-        _build.ptrs(x, y, out), _build.ints(lds), W, _build.field_shape(F), words,
-        _build.stream_of(x),
-    )
+    shape = _build.field_shape(F)
+    lib, _ = _build.library(shape)
+    code = lib.msm_montmul(_build.ptrs(x, y, out), _build.ints(lds), W, shape, words,
+                           _build.stream_of(x))
     _build.check(code, KERNEL)
     COUNTS[KERNEL] += 1
     return out
@@ -114,23 +113,27 @@ def exp_chain(e: int) -> tuple[int, ...]:
 def _exp_args(F, e: int) -> ctypes.Array:
     """The words of K8's ExpArgs for field F and exponent e: the op list
     (4 ops a word), then p, -p^-1 mod R', R'^2 / R mod p and R mod p as
-    30-bit digits, R' = 2^(30 digits), the digits of F's shape."""
-    lib, _ = _build.library()
-    layout = (ctypes.c_int * 4)()
-    nd = lib.msm_exp_layout(_build.field_shape(F), layout)
-    op_words, dmax, ebits, nwords = layout
+    30-bit digits, R' = 2^(30 digits), the digits of F's shape; or, on a
+    shape that K8 runs one thread a lane (more than 12 words), ExpWideArgs:
+    the op list alone."""
+    shape = _build.field_shape(F)
+    lib, _ = _build.library(shape)
+    layout = (ctypes.c_int * 7)()
+    nd = lib.msm_exp_layout(shape, layout)
+    op_words, dmax, ebits, nwords = layout[:4] if nd else (layout[4], 0, layout[5], layout[6])
     if e.bit_length() > ebits:
-        raise ValueError(f"the K8 kernel takes exponents below 2^{ebits}")
+        raise ValueError(f"the K8 kernel takes exponents below 2^{ebits} on this field")
     ops = list(exp_chain(e))
     if len(ops) > 4 * op_words:
         raise ValueError(f"K8's chain for this exponent has {len(ops)} ops; the kernel takes {4 * op_words}")
     ops += [0] * (4 * op_words - len(ops))
-    r_chain = 1 << (30 * nd)
-    consts = (F.p, (-pow(F.p, -1, r_chain)) % r_chain, r_chain * r_chain * pow(F.R, -1, F.p) % F.p,
-              F.mont_one)
     words = [len(exp_chain(e))] + [sum(ops[4 * i + k] << (8 * k) for k in range(4)) for i in range(op_words)]
-    for c in consts:
-        words += [(c >> (30 * q)) & ((1 << 30) - 1) for q in range(dmax)]
+    if nd:
+        r_chain = 1 << (30 * nd)
+        consts = (F.p, (-pow(F.p, -1, r_chain)) % r_chain,
+                  r_chain * r_chain * pow(F.R, -1, F.p) % F.p, F.mont_one)
+        for c in consts:
+            words += [(c >> (30 * q)) & ((1 << 30) - 1) for q in range(dmax)]
     assert len(words) == nwords, (len(words), nwords)
     return _build.ints(words, ctypes.c_uint32)
 
@@ -144,18 +147,18 @@ def _exp_launch(F, x: torch.Tensor, entry: str, key: str, args: ctypes.Array) ->
     out = torch.empty((n, W), dtype=torch.int32, device=x.device)
     if W == 0:
         return out
-    lib, _ = _build.library()
-    code = getattr(lib, entry)(
-        _build.ptrs(x, out), _build.ints(lds), W, _build.field_shape(F), args, words,
-        _build.stream_of(x),
-    )
+    shape = _build.field_shape(F)
+    lib, _ = _build.library(shape)
+    code = getattr(lib, entry)(_build.ptrs(x, out), _build.ints(lds), W, shape, args, words,
+                               _build.stream_of(x))
     _build.check(code, key)
     COUNTS[key] += 1
     return out
 
 
 def exp_const(F, x: torch.Tensor, e: int) -> torch.Tensor:
-    """x^e for a static exponent 0 <= e < 2^384 on (n, W) Montgomery limbs
+    """x^e for a static exponent 0 <= e < 2^384 (2^768 on fields of more
+    than 12 words) on (n, W) Montgomery limbs
     (values < 4p; CUDA operands may have strided limb rows). Output (n, W):
     canonical limbs, value < 2p (e = 0 gives one); equal to the twin mod p."""
     if e < 0:

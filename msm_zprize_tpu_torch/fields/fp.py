@@ -25,6 +25,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..bigint.field import montgomery_params
 from . import limbs as L
 from .limbs import DTYPE, LimbScheme
 
@@ -158,14 +159,15 @@ class MontgomeryFp:
 
     def __init__(self, p: int, w: int = 12, min_extra_bits: int = 4):
         # the JAX package's limb count: R = 2^(n*w) > 2^min_extra_bits * 2p
-        n = -(-(p.bit_length() + 1 + min_extra_bits) // w)
+        mp = montgomery_params(p, w, min_extra_bits)
+        n = mp.n
         if not 2 * n * (1 << (2 * w)) < (1 << 31):
             raise ValueError("column accumulator overflow")
         self.p = p
         self.w = w
         self.n = n
-        self.mask = (1 << w) - 1
-        self.R = 1 << (n * w)
+        self.mask = mp.mask
+        self.R = mp.R
         if not self.R > 16 * p:
             raise ValueError("need R > 16p for unreduced-input closure")
         self.scheme = LimbScheme(w, n)
@@ -173,8 +175,8 @@ class MontgomeryFp:
         self.two_p_limbs = np.array(self.scheme.to_limbs(2 * p), dtype=np.int32)
         pn = self.pn = (-pow(p, -1, self.R)) % self.R  # -p^-1 mod R (3-product reduction)
         self.pn_limbs = np.array(self.scheme.to_limbs(pn), dtype=np.int32)
-        self.mont_one = self.R % p
-        self.R2 = self.R * self.R % p
+        self.mont_one = mp.R_mod_p
+        self.R2 = mp.R2
         self._toeplitz_cache: dict = {}
 
     # ---- constants and shapes ---------------------------------------------

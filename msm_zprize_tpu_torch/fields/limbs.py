@@ -16,6 +16,8 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from ..bigint.field import to_limbs
+
 __all__ = [
     "DTYPE",
     "LimbScheme",
@@ -52,7 +54,7 @@ class LimbScheme:
         return self.n * self.w
 
     def to_limbs(self, x: int) -> list[int]:
-        return [(x >> (self.w * i)) & self.mask for i in range(self.n)]
+        return to_limbs(x, self.w, self.n)
 
 
 def pack(values, scheme: LimbScheme) -> np.ndarray:

@@ -17,6 +17,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..bigint.glv import glv_params
 from . import limbs as L
 from .limbs import DTYPE, LimbScheme
 
@@ -27,24 +28,12 @@ __all__ = [
 
 
 def glv_basis(q: int, lambda_: int):
-    """Short lattice basis of {(a, b): a + b lambda == 0 mod q}, as the JAX
-    package's ``bigint/glv.py::glv_params`` finds it: the consecutive pair of
-    extended-Euclid rows on (q, lambda) with determinant +-q and the smallest
-    largest entry. Returns ((v00, v01), (v10, v11), det, max_bits), max_bits
-    bounding the bit length of a Babai-rounded half."""
-    rows = [(q, 0)]
-    old_r, r, old_t, t = q, lambda_ % q, 0, 1
-    rows.append((r, -t))
-    while r:
-        quo = old_r // r
-        old_r, r = r, old_r - quo * r
-        old_t, t = t, old_t - quo * t
-        rows.append((r, -t))
-    pairs = [(a, b) for a, b in zip(rows, rows[1:]) if abs(a[0] * b[1] - a[1] * b[0]) == q]
-    v0, v1 = min(pairs, key=lambda ab: max(map(abs, ab[0] + ab[1])))
-    det = v0[0] * v1[1] - v0[1] * v1[0]
-    bound = max(abs(v0[0]) + abs(v1[0]), abs(v0[1]) + abs(v1[1])) + 1
-    return v0, v1, det, bound.bit_length()
+    """Short lattice basis of {(a, b): a + b lambda == 0 mod q}, from
+    ``bigint/glv.py::glv_params`` (the one derivation). Returns ((v00, v01),
+    (v10, v11), det, max_bits), max_bits bounding the bit length of a
+    Babai-rounded half."""
+    g = glv_params(q, lambda_)
+    return (g.v00, g.v01), (g.v10, g.v11), g.det, g.max_bits
 
 
 class SimpleScalar:

@@ -241,7 +241,11 @@ class Weierstrass:
         The bases equal the JAX package's for the same seed; the picks come
         from a ``torch.Generator``, not JAX's threefry stream, so the points
         differ from the JAX package's."""
-        rows, picks = self.random_points_table(N, seed, entropy_bits, c)
+        return self.points_from_table(*self.random_points_table(N, seed, entropy_bits, c), device)
+
+    def points_from_table(self, rows, picks, device=DEVICE) -> AffinePoints:
+        """``random_points_fast``'s device half: point i is the sum over k of
+        rows[k][picks[k, i]] (one gather, K - 1 K7, ``to_affine``)."""
         W = self.ops
         x, y, inf = _gather_picks(W.pack_affine([P for row in rows for P in row], device), picks)
         acc = W.from_affine(AffinePoints(x[:, 0], y[:, 0], inf[0]))
@@ -342,7 +346,11 @@ class TwistedEdwards:
         ``batch_normalize`` (K1 and one K8). The bases equal the JAX
         package's for the same seed; the picks come from a
         ``torch.Generator``, so the points differ from the JAX package's."""
-        rows, picks = self.random_points_table(N, seed, entropy_bits, c)
+        return self.points_from_table(*self.random_points_table(N, seed, entropy_bits, c), device)
+
+    def points_from_table(self, rows, picks, device=DEVICE) -> ExtPoints:
+        """``random_points_fast``'s device half: point i is the sum over k of
+        rows[k][picks[k, i]] (one gather, K - 1 K11, ``batch_normalize``)."""
         E = self.ops
         picked = _gather_picks(E.pack([P for row in rows for P in row], device), picks)
         acc = ExtPoints(*(a[:, 0] for a in picked))

@@ -17,8 +17,8 @@ reports them:
 * the device-busy share over 3 profiled runs: the union of the kernel
   intervals ``torch.profiler`` records on the card over the wall time of
   the window, and the device time per run by kernel (launches, total);
-* for the default modes, stage walls, each stage synchronised before and
-  after (median of 10): prep (digits, and the Edwards normalization or the
+* for the default modes, stage times, each stage synchronised before and
+  after and timed by CUDA events (median of 10; ``utils/phases.py``): prep (digits, and the Edwards normalization or the
   GLV endomorphism), accumulation (its prep included), bucket reduction,
   Horner;
 * the serial chains: the device time per launch of K8 (the Fermat
@@ -52,48 +52,19 @@ from .counters import COUNTS
 from .curves import cuda_curve
 from .curves.params import ED_ON_BLS12_377, WEIERSTRASS_CURVES
 from .curves.weierstrass import ProjectivePoints
-from .msm import basic, batched_affine, engine
 from .msm.common import window_size
 from .parallel.api import TwistedEdwards, Weierstrass
 from .testing import bounds
-from .testing.points import ed_points_with_logs, points_with_logs
+from .utils import phases
 
 __all__ = ["main"]
 
 
-def _sync_ms(fn, reps: int = 10):
-    """Median host-clock ms of fn() between two synchronisations, and its
-    last result."""
-    times, out = [], None
-    for _ in range(reps + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times[1:]), out
-
-
 def _stages(label, cv, scalars, points, log_n):
-    """Synchronised stage walls of one MSM: prep, accumulation (prep
-    included), reduction, Horner."""
-    if label in WEIERSTRASS_CURVES:
-        c = window_size("batched-affine", log_n)
-        prep = lambda: batched_affine.glv_prep(cv.ops, cv.scalar, scalars, points, c)
-        acc = lambda: batched_affine.accumulate_glv_projective(cv.ops, cv.scalar, scalars, points, c)
-        ops = batched_affine._ProjAcc(cv.ops, scalars.device)
-    else:
-        c = window_size("edwards", log_n)
-        bits = cv.scalar.bits
-        prep = lambda: basic.edwards_prep(cv.ops, scalars, points, bits, c)
-        acc = lambda: basic.accumulate_edwards_padded(cv.ops, scalars, points, bits, c)
-        ops = basic._EdAcc(cv.ops, scalars.device)
-    walls = {"prep": _sync_ms(prep)[0]}
-    walls["accumulation (prep included)"], sums = _sync_ms(acc)
-    c0 = max((c - 1) // 2, 1)
-    walls["bucket reduction"], per_window = _sync_ms(lambda: engine.reduce_buckets_log(sums, c0, ops))
-    walls["horner"], _ = _sync_ms(lambda: engine.horner(per_window, c, ops.add, ops.double_k))
-    return walls
+    """CUDA-event stage times of one MSM (``utils/phases.py::stage_times``):
+    prep, accumulation (prep included), reduction, Horner."""
+    c = window_size("batched-affine" if label in WEIERSTRASS_CURVES else "edwards", log_n)
+    return phases.stage_times(cv, scalars, points, c)
 
 
 def _curve_table(head, kernels, launches, runs) -> None:
@@ -111,9 +82,8 @@ def _curve_table(head, kernels, launches, runs) -> None:
         # K4m: lanes with the mask set; K7: lanes whose affine operand is finite
         computing = None if flags is None else int(
             flags.ne(0).sum() if name.endswith(cuda_curve.K4M) else flags.eq(0).sum())
-        sid = _build.field_shape(F)
-        fn, nw, _ = _build.FIELD_SHAPES[sid]
-        mm = bounds.mont_imads(nw, 12 * fn > 32 * nw)
+        fn, nw, _ = _build.shape_layout(_build.field_shape(F))
+        mm = bounds.mont_imads(nw, 12 * fn % 32 > 0, 12 * fn // 32)
         nbytes, imads = bounds.curve_work(name, n, mm, width, k, computing)
         row = rows[(name, width, k)]
         row[0] += 1
@@ -149,13 +119,10 @@ def main(argv=None) -> None:
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     N = 1 << args.log_n
     if args.curve in WEIERSTRASS_CURVES:
-        params = WEIERSTRASS_CURVES[args.curve]
-        cv = Weierstrass.create(params)
-        pts, _ = points_with_logs(params, N, seed=args.seed)
+        cv = Weierstrass.create(WEIERSTRASS_CURVES[args.curve])
     else:
         cv = TwistedEdwards.create(ED_ON_BLS12_377)
-        pts, _ = ed_points_with_logs(ED_ON_BLS12_377, N, seed=args.seed)
-    points = cv.points_from_ints(pts, dev)
+    points = cv.random_points_fast(N, seed=args.seed, device=dev)  # made on the card: any N
     batches = [cv.random_scalars(N, seed=args.seed + 1 + i, device=dev) for i in range(25)]
     default = "projective" if args.curve in WEIERSTRASS_CURVES else "padded"
     path = args.path or default
@@ -222,7 +189,7 @@ def main(argv=None) -> None:
 
     walls = _stages(args.curve, cv, batches[0], points, args.log_n)
     print(f"[stages] {head}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in walls.items())
-          + " (each synchronised, median of 10)")
+          + " (each synchronised, CUDA events, median of 10)")
     chains = {k: sorted(v) for k, v in by_name.items()
               if "exp_warp_kernel" in k or "double_k" in k}
     print(f"[serial] {head}: one-launch device times of the chained kernels (ms): "

@@ -29,13 +29,15 @@ def imad_per_s(torch) -> float:
     return IMAD_PER_CLOCK_PER_SM * sms * float(clock.split()[0]) * 1e6
 
 
-def mont_imads(nw: int, tail: bool) -> int:
+def mont_imads(nw: int, tail: bool, rw: int | None = None) -> int:
     """32-bit multiply-adds of one CIOS product over nw words: nw^2 products
-    a_j b_i and nw^2 products m p_j, each 32x32->64 counted as two (low and
-    high half), nw quotient digits m; the tail round one more row of m p_j
-    and its digit. Additions, carries and selects are not counted, so a
-    bound built on this is a lower bound."""
-    return 4 * nw * nw + nw + (2 * nw + 1 if tail else 0)
+    a_j b_i and, for each of the rw (default nw) full reduction rounds, nw
+    products m p_j, each 32x32->64 counted as two (low and high half), and
+    its quotient digit m; the tail round one more row of m p_j and its
+    digit. Additions, carries and selects are not counted, so a bound built
+    on this is a lower bound."""
+    rw = nw if rw is None else rw
+    return 2 * nw * nw + 2 * rw * nw + rw + (2 * nw + 1 if tail else 0)
 
 
 def bound_ms(nbytes: float, imads: float, rate: float) -> tuple[float, str]:

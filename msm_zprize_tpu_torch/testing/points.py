@@ -17,17 +17,26 @@ complete RCB doubling requires, and with no square root to take on the
 Edwards curve). Randomness comes from ``numpy.random.default_rng(seed)``.
 The device generator of random points is ``random_points_fast``
 (``parallel/api.py``); these points are for checks by discrete log.
+
+``table_points_with_logs`` builds N points on the device as
+``random_points_fast`` does (K tables of 2^c multiples of a base, one pick
+from each, K - 1 additions on the card), but from bases b_k G of known
+logs, so point i's log is sum_k picks[k, i] b_k: seconds at 2^20, where the
+host walk takes minutes. Its check needs only, per table, the sum of the
+scalars times the picks, formed on the scalars' limbs.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..bigint.weierstrass import AffineCurve
 from ..curves.params import EdwardsParams, WeierstrassParams
+from ..parallel.api import _table_and_picks
 
 __all__ = [
-    "points_with_logs", "expected_msm", "naive_msm",
+    "points_with_logs", "expected_msm", "naive_msm", "table_points_with_logs",
     "ed_add", "ed_points_with_logs", "ed_expected_msm", "ed_naive_msm",
 ]
 
@@ -120,3 +129,42 @@ def ed_naive_msm(params: EdwardsParams, scalars, points):
     for s, P in zip(scalars, points):
         acc = add(acc, _scale(add, (0, 1), s, P))
     return acc
+
+
+class _BasesOfKnownLog:
+    """A curve oracle whose ``random`` returns b G for a fresh b in [1, q),
+    kept in ``logs``: the bases that ``_table_and_picks`` draws."""
+
+    def __init__(self, oracle, G, q: int):
+        self.oracle, self.G, self.q, self.logs = oracle, G, q, []
+        self.zero, self.add = oracle.zero, oracle.add
+
+    def random(self, rng):
+        b = rng.randrange(1, self.q)
+        self.logs.append(b)
+        return self.oracle.scale(b, self.G)
+
+
+def table_points_with_logs(cv, N: int, seed: int, device, entropy_bits: int = 64, c: int = 8):
+    """N points of known logs for the curve module ``cv`` (``Weierstrass``
+    or ``TwistedEdwards``), made on ``device`` by ``cv.points_from_table``.
+    Returns (points, expected), expected(scalars) the MSM's affine int result
+    for a (n, N) scalar limb tensor."""
+    params = cv.params
+    weier = hasattr(cv.ops, "affine_is_on_curve")
+    G = params.generator if weier else cv.oracle.from_affine(params.generator)
+    bases = _BasesOfKnownLog(cv.oracle, G, params.order)
+    rows, picks = _table_and_picks(bases, N, seed, entropy_bits, c)
+    points = cv.points_from_table(rows, picks, device)
+
+    def expected(scalars):
+        # sum_i s_i picks[k, i] per table, from the limbs: each column sum is
+        # below N 2^12 2^c, exact in int64
+        cols = torch.einsum("ln,kn->kl", scalars.cpu().long(), picks)
+        w = cv.scalar.w
+        e = sum(b * sum(int(v) << (w * l) for l, v in enumerate(row))
+                for b, row in zip(bases.logs, cols.tolist())) % params.order
+        P = cv.oracle.scale(e, G)
+        return P if weier else cv.oracle.to_affine(P)
+
+    return points, expected

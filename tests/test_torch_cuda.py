@@ -44,23 +44,32 @@ Edwards padded path's widths (23 to 471,040), its masked-off lanes bit for
 bit. The Edwards K12 (one instance) at W = 1 and 23, k = 1, 5 and 11.
 Every curve kernel's outputs lie below 2p. An Fp22 and a
 Pallas launch on the same limbs take different shape IDs, and the C
-entries refuse a Pallas field under Fp22's. The sharded MSM on two rank
+entries refuse a Pallas field under Fp22's. The fields outside the four
+main shapes (secp256k1, goldilocks, babybear, n = 1, n = 63) take shapes
+made on demand: K1 limb for limb and K8 mod p against the twins, K4 and K5
+with 3b by a product; n = 63 is refused by the curve entries, the limit
+named. The sharded MSM on two rank
 processes sharing the card over gloo (``testing/mesh_ranks.card_ranks``):
 every rank's result equals the known logs, and each run launched every
 kernel of its path.
 """
+
+import types
 
 import numpy as np
 import pytest
 import torch
 
 from msm_zprize_tpu_torch import _build
+from msm_zprize_tpu_torch.bigint.field import next_prime
 from msm_zprize_tpu_torch.counters import COUNTS
 from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
+from msm_zprize_tpu_torch.curves.example_fields import EXAMPLE_FIELDS
 from msm_zprize_tpu_torch.curves.params import BLS12_377, BLS12_381, ED_ON_BLS12_377, PALLAS
 from msm_zprize_tpu_torch.curves.weierstrass import ProjectivePoints
 from msm_zprize_tpu_torch.fields import cuda_codec, cuda_mul, cuda_scalar
 from msm_zprize_tpu_torch.fields.codec import Fma51Codec, PackedCodec
+from msm_zprize_tpu_torch.fields.fp import make_field
 from msm_zprize_tpu_torch.fields.cuda_scalar import glv_digits, glv_digits_plain, simple_digits
 from msm_zprize_tpu_torch.fields.scalar import signed_digits
 from msm_zprize_tpu_torch.msm.common import halving_layout
@@ -525,6 +534,32 @@ def test_kernels_match_plain_twins(dev):
     code = lib.msm_montmul(_build.ptrs(x, y, out), _build.ints([WIDTH] * 3), WIDTH,
                            _build.field_shape(FE), _build.field_words(FP), _build.stream_of(x))
     assert code != 0
+
+    # queue 3's fault 3: the fields outside the four main shapes take shapes
+    # made on demand; K1 limb for limb and K8 / inverse mod p against the
+    # twins, the curve kernels (3b by a product) on one, and n = 63 refused
+    # by the curve entries with the limit named
+    for p in (EXAMPLE_FIELDS["secp256k1-fp"], EXAMPLE_FIELDS["goldilocks"],
+              EXAMPLE_FIELDS["babybear"], 97, next_prime((1 << 750) + 12345)):
+        G = make_field(p)
+        assert _build.field_shape(G) >= _build.DYN_ID_BASE
+        a, b = _vals(G, dev, rng, WIDTH, (4 * p - 1, 1)), _vals(G, dev, rng, WIDTH, (2 * p - 1, 3))
+        assert torch.equal(cuda_mul.montmul(G, a, b), G.montmul_plain(a, b)), p
+        assert _below_2p(G, cuda_mul.exp_const(G, a, p - 2))
+        assert torch.equal(G.fully_reduce(cuda_mul.exp_const(G, a, p - 2)),
+                           G.fully_reduce(G.exp_const_plain(a, p - 2))), p
+        Wd = types.SimpleNamespace(F=G, b3_mont=123457 * G.R % p, b3_small=None,
+                                   storage=cuda_curve.Storage(G.n))
+        if G.n <= _build.CURVE_MAX_LIMBS:
+            P1 = [_vals(G, dev, rng, WIDTH) for _ in range(3)]
+            P2 = [_vals(G, dev, rng, WIDTH) for _ in range(3)]
+            for got, want in ((cuda_curve.proj_add(Wd, *P1, *P2), cuda_curve.proj_add_plain(Wd, *P1, *P2)),
+                              (cuda_curve.proj_double_k(Wd, *P1, 2),
+                               cuda_curve.proj_double_k_plain(Wd, *P1, 2))):
+                assert all(torch.equal(G.fully_reduce(g), G.fully_reduce(w)) for g, w in zip(got, want))
+        else:
+            with pytest.raises(ValueError, match=str(_build.CURVE_MAX_LIMBS)):
+                cuda_curve.proj_double(Wd, a, a, a)
 
 
 def test_mesh_two_ranks_on_one_card(dev):

@@ -44,8 +44,10 @@ from msm_zprize_tpu.fields.pallas_scalar import simple_digits_pallas
 from msm_zprize_tpu.fields.scalar import signed_digits as jax_signed_digits
 from msm_zprize_tpu.parallel.api import TwistedEdwards as JaxTwistedEdwards
 from msm_zprize_tpu_torch import _build
+from msm_zprize_tpu_torch.bigint import field as host_field
 from msm_zprize_tpu_torch.curves import cuda_edwards
 from msm_zprize_tpu_torch.curves import params as port_params
+from msm_zprize_tpu_torch.curves.example_fields import EXAMPLE_FIELDS
 from msm_zprize_tpu_torch.curves.edwards import EdwardsOps, ExtPoints
 from msm_zprize_tpu_torch.fields import cuda_mul
 from msm_zprize_tpu_torch.fields.fp import make_field
@@ -60,6 +62,8 @@ torch.set_num_threads(1)
 
 P = ED_ON_BLS12_377.modulus
 Q = ED_ON_BLS12_377.order
+SECP256K1_P, GOLDILOCKS, BABYBEAR = (EXAMPLE_FIELDS[k] for k in ("secp256k1-fp", "goldilocks",
+                                                                 "babybear"))
 B = 8
 
 
@@ -70,9 +74,12 @@ def _ints(seed, bound, count, edges=(), nbytes=40):
                    for _ in range(count - len(vals))]
 
 
-def _cios(a: int, b: int, p: int, nw: int, tail: int) -> int:
+def _cios(a: int, b: int, p: int, nw: int, tail: int, rw: int | None = None) -> int:
     """The kernels' Montgomery product (csrc/field.cuh::mont_mul) word for
-    word: nw CIOS rounds over 32-bit words, then one tail-bit round."""
+    word: nw multiply rounds over 32-bit words, a reduction after each of
+    the first rw (default nw; a shape made on demand may have rw = nw - 1),
+    then one tail-bit round. Asserts that the top word never overflows."""
+    rw = nw if rw is None else rw
     m32 = (1 << 32) - 1
     pinv = (-pow(p, -1, 1 << 32)) % (1 << 32)
     aw, bw, pw = ([(v >> (32 * i)) & m32 for i in range(nw)] for v in (a, b, p))
@@ -82,7 +89,10 @@ def _cios(a: int, b: int, p: int, nw: int, tail: int) -> int:
         for j in range(nw):
             c += aw[j] * bw[i] + t[j]
             t[j], c = c & m32, c >> 32
+        assert t[nw] + c <= m32
         t[nw] = (t[nw] + c) & m32
+        if i >= rw:  # b's top word: no reduction round
+            continue
         m = (t[0] * pinv) & m32
         c = (m * pw[0] + t[0]) >> 32
         for j in range(1, nw):
@@ -96,6 +106,7 @@ def _cios(a: int, b: int, p: int, nw: int, tail: int) -> int:
         for j in range(nw):
             c += m * pw[j] + t[j]
             t[j], c = c & m32, c >> 32
+        assert t[nw] + c <= m32
         t[nw] = (t[nw] + c) & m32
         t = [((t[j] >> tail) | (t[j + 1] << (32 - tail))) & m32 for j in range(nw)]
     return sum(t[j] << (32 * j) for j in range(nw))
@@ -175,6 +186,24 @@ def _k8_model(F, nw: int, v: int, e: int) -> int:
     return val(_warp_mul(cur, dig(F.mont_one), nd, p_d, pn_d))
 
 
+def _k8_thread_model(F, nw: int, rw: int, tail: int, v: int, e: int) -> int:
+    """K8 on one thread (csrc/montmul.cu::exp_thread_kernel): the op list of
+    ``cuda_mul.exp_chain`` on ``_cios`` products in R itself, then one
+    conditional subtract of 2p. Returns the stored value."""
+    p, cur, slots = F.p, v, {}
+    if not cuda_mul.exp_chain(e):
+        cur = F.mont_one
+    for op in cuda_mul.exp_chain(e):
+        kind, t = op >> 6, op & 31
+        if kind == cuda_mul.MUL:
+            cur = _cios(cur, cur if t == cuda_mul.CUR else slots[t], p, nw, tail, rw)
+        elif kind == cuda_mul.SAVE:
+            slots[t] = cur
+        else:
+            cur = slots[t]
+    return cur - 2 * p if cur >= 2 * p else cur
+
+
 def test_field_core_and_inverse_match_jax():
     """The kernels' words (csrc/field.cuh), modelled in Python, on every
     field shape: the CIOS rounds and tail round after the load equal
@@ -189,7 +218,9 @@ def test_field_core_and_inverse_match_jax():
     fewest products of sliding windows up to 5 bits) and its warp product
     on 30-bit digits (``_k8_model``) give x^e mod p below 2p on every shape,
     for inputs up to 4p - 1 and e up to 2^384 - 1, with the products the
-    chain counts."""
+    chain counts. The shapes made on demand (secp256k1, goldilocks,
+    babybear, n = 1 and n = 63) take the same models with their extra
+    word and their one-thread K8."""
     shapes = ((BLS12_377.modulus, 12, 0, False), (P, 8, 8, False),
               (BLS12_381.modulus, 12, 12, False), (PALLAS.modulus, 8, 8, True))
     for p, nw, tail, carry in shapes:
@@ -232,11 +263,42 @@ def test_field_core_and_inverse_match_jax():
         assert cuda_mul.exp_products(ops) < (p - 2).bit_length() + bin(p - 2).count("1"), nw
     # BLS12-381 (n = 33) and Pallas (n = 22 as this field, but 4p > 2^256)
     # take shapes of their own; a field of n = 22 whose 2p exceeds 8 words
-    # has none
+    # takes a shape made on demand with a ninth word
     ids = [_build.field_shape(make_field(p)) for p in (P, BLS12_381.modulus, PALLAS.modulus)]
     assert ids == [2, 3, 4]
-    with pytest.raises(ValueError, match="2p < 2\\^256 <= 4p"):
-        _build.field_words(make_field((1 << 255) + 95))
+    assert _build.shape_layout(_build.field_shape(make_field((1 << 255) + 95))) == (22, 9, False)
+    # shapes made on demand (csrc/field.cuh::DynShape): NW words with 8p <
+    # 2^(32 NW), RW = 12 n div 32 full reductions and a TAIL = 12 n mod 32
+    # round; where NW = RW + 1 b's top word is multiplied in unreduced. The
+    # word model equals montmul_plain's integer on inputs below 4p (no word
+    # overflows), and K8's chain gives x^e below 2p: on the warp's digits up
+    # to 12 words, else on one thread's mont_mul (exp_thread_kernel).
+    wide = host_field.next_prime((1 << 750) + 12345)  # n = 63, the widest
+    # ed25519 (p = 2^255 - 19) on the carry shape: a 2^32 + p with a < 2p
+    # passes 9 words, so it takes a shape made on demand of 9 words
+    ed25519 = EXAMPLE_FIELDS["ed25519-fp"]
+    with pytest.raises(AssertionError):
+        _cios(2 * ed25519 - 1, 2 * ed25519 - 1, ed25519, 8, 8)
+    for p in (SECP256K1_P, GOLDILOCKS, BABYBEAR, 97, wide, ed25519):
+        F = make_field(p)
+        n, nw, carry = _build.shape_layout(_build.field_shape(F))
+        rw, tail = divmod(12 * n, 32)
+        assert n == F.n and not carry and nw in (rw, rw + 1) and 8 * p < 1 << (32 * nw)
+        assert nw == rw or 8 * p >= 1 << (32 * (nw - 1))  # the fewest words
+        vals = list(zip(_ints(6, 4 * p, 24, edges=(0, 1, 4 * p - 1), nbytes=100),
+                        _ints(7, 4 * p, 24, edges=(4 * p - 1, 4 * p - 1, 1), nbytes=100)))
+        x, y = (torch.as_tensor(F.pack([v[i] for v in vals], montgomery=False)) for i in range(2))
+        want = F.unpack(F.montmul_plain(x, y), montgomery=False, reduce=False)
+        got = [_cios(a, b, p, nw, tail, rw) for a, b in vals]
+        assert got == want and max(got) < 2 * p, (n, nw)
+        r_inv = pow(F.R, -1, p)
+        for e in (0, 1, 2, 17, p - 2):
+            for v in (0, 1, p - 1, 4 * p - 1):
+                if -(-32 * nw // 30) <= 13:
+                    got = _k8_model(F, nw, v, e)
+                else:
+                    got = _k8_thread_model(F, nw, rw, tail, v, e)
+                assert got < 2 * p and got % p == pow(v * r_inv, e, p) * F.R % p, (n, e, v)
 
     F, J = make_field(P), jax_field(P)
     x = F.pack(_ints(3, P, 64, edges=(1, P - 1)))

@@ -14,12 +14,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from msm_zprize_tpu.curves.example_fields import EXAMPLE_FIELDS
+from msm_zprize_tpu.curves.example_fields import EXAMPLE_FIELDS as JAX_EXAMPLE_FIELDS
 from msm_zprize_tpu.curves.params import BLS12_377, BLS12_381
 from msm_zprize_tpu.fields import limbs as JL
 from msm_zprize_tpu.fields.fp import make_field as jax_field
 from msm_zprize_tpu.fields.pallas_mul import _mm_rows
 from msm_zprize_tpu_torch import _build
+from msm_zprize_tpu_torch.bigint.field import next_prime
+from msm_zprize_tpu_torch.curves.example_fields import EXAMPLE_FIELDS
 from msm_zprize_tpu_torch.counters import COUNTS
 from msm_zprize_tpu_torch.fields import cuda_mul
 from msm_zprize_tpu_torch.fields import limbs as TL
@@ -137,10 +139,22 @@ def test_montmul_twin_kernel_body_fields_and_dispatch(fields):
     assert COUNTS["k1_montmul"] == before  # no kernel launch on CPU tensors
 
     # BLS12-381's field has a shape of its own (n = 33, R = 2^396); a field
-    # of n = 33 whose 4p exceeds 12 words has none
+    # of n = 33 whose 4p exceeds 12 words takes a shape made on demand of 13
+    # words, as every example field outside the four shapes does (its ID
+    # names its compile key: n and the words; ed25519's p = 2^255 - 19 is
+    # too close to 2^255 for the carry shape's accumulator); MontgomeryFp
+    # itself refuses n = 64, past the limb code's column budget
     assert _build.field_shape(make_field(BLS12_381.modulus)) == 3
-    with pytest.raises(ValueError, match="2\\^384"):
-        _build.field_words(make_field((1 << 382) + 3))
+    assert _build.shape_layout(_build.field_shape(make_field((1 << 382) + 3))) == (33, 13, False)
+    shapes = {name: _build.field_shape(make_field(q)) for name, q in EXAMPLE_FIELDS.items()}
+    assert set(shapes) == set(JAX_EXAMPLE_FIELDS) and all(
+        EXAMPLE_FIELDS[k] == JAX_EXAMPLE_FIELDS[k] for k in shapes)
+    made = {k for k, sid in shapes.items() if sid not in _build.FIELD_SHAPES}
+    assert made == {"ed25519-fp", "secp256k1-fp", "secp256k1-fq", "goldilocks", "babybear"}, made
+    assert [_build.shape_layout(shapes[k]) for k in ("secp256k1-fp", "goldilocks", "babybear")] == [
+        (22, 9, False), (6, 3, False), (3, 2, False)]
+    with pytest.raises(ValueError, match="overflow"):
+        make_field(next_prime(1 << 752))
     z = torch.zeros((32, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="device"):
         cuda_mul.montmul(F, z, torch.zeros((32, 4), dtype=torch.int32, device="meta"))

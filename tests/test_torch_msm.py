@@ -106,7 +106,8 @@ def test_port_boundaries(curves):
     layout's 255-bit ceiling on p), naming the one supported curve below it
     (Pallas); unknown modes raise; importing the port (every module, item
     10's sqrt, barrett, fma51 and bytes_codec, the mesh, its launcher, the
-    entry twin and the native codec named) leaves JAX and the JAX package
+    entry twin, the native codec, the bigint oracles, the harness, the
+    utilities and the four tools named) leaves JAX and the JAX package
     out, and chip_smoke.py imports neither."""
     assert dataclasses.asdict(port_params.BLS12_377) == dataclasses.asdict(BLS12_377)
     port = curves[0]
@@ -139,7 +140,10 @@ def test_port_boundaries(curves):
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "assert 'msm_zprize_tpu' not in sys.modules\n"
         "for name in ('fields.sqrt', 'fields.barrett', 'fields.fma51', 'fields.bytes_codec',\n"
-        "             'parallel.mesh', 'parallel.launch', 'graft_entry', 'utils.native_codec'):\n"
+        "             'parallel.mesh', 'parallel.launch', 'graft_entry', 'utils.native_codec',\n"
+        "             'bigint.glv', 'bigint.msm', 'curves.example_fields', 'testing.equivalent',\n"
+        "             'utils.phases', 'utils.point_cache', 'utils.timing', 'scripts.run_msm',\n"
+        "             'scripts.evaluate_msm', 'scripts.field_benchmark', 'scripts.scaling_bench'):\n"
         "    assert m.__name__ + '.' + name in sys.modules, name\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
