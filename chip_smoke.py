@@ -14,7 +14,9 @@ non-zero and no result line is printed):
 1. device: the card's name and power limit, and the kernel build
    (one ``nvcc`` per source into ``build/``, with the ptxas register,
    stack and spill lines, and each curve kernel's SASS instructions and
-   local loads/stores from ``cuobjdump -sass``);
+   local loads/stores from ``cuobjdump -sass``); then the libraries of the
+   shapes made on demand and of BN462's scalar module that phases 18 and
+   20 run start building in the background (one ``nvcc`` per source);
 2. every kernel of every path against its plain PyTorch twin on the card,
    at the shapes the 2^16 MSMs give it (K2 and K9 bit-exact, the others
    exact mod p, the pass-through lanes of K4m, K7 and the masked K11 bit
@@ -114,15 +116,30 @@ non-zero and no result line is printed):
     peak device memory; and ``compute_msm`` with ``mesh=`` at N = 2^12.
 18. every field ``make_field`` takes: K1 and K8 on the 11 example fields and
     on primes of n = 1 and n = 63 limbs (the shapes outside the main library
-    built on demand, all at once), against the host and their twins; every
+    built on demand, since phase 1), against the host and their twins; every
     limb-storage curve kernel (K3-K7, K4m, K10-K12, the masked K11) on
     goldilocks, babybear and secp256k1's base field against its twin; the
-    n = 63 refusal of the curve entries; the equivalence harness on the card.
+    equivalence harness on the card.
 19. the tools: ``run_msm`` on BLS12-377 at 2^16 (with its phase table) and
     2^20 (against the known logs) and on ed-on-bls12-377 at 2^16;
     ``field_benchmark``; ``evaluate_msm`` over c = 10..14 in turns (records
     only), its reading of the table's c beside ``run_msm``'s before and after
     it; ``scaling_bench`` at d = 1 on NCCL.
+20. the wide fields (``testing/wide_curves.py``): BN462 (n = 39; its field
+    shape and its GLV scalar module built on demand) through
+    ``Weierstrass.create(BN462).msm``: N = 8 and edge cases against both host
+    oracles, the N = 8 modes (``"packed"``, ``"affine"``, ``msm_unsafe``,
+    ``"halving"``, ``msm_projective``) and a subgroup check (K6), then
+    ``"projective"`` and ``"packed"`` (15 rows) at 2^16 against the
+    known-log sum, with launches and 2 warmups + 5 timed runs; ed25519 (the
+    9-word shape) through ``TwistedEdwards.create(ED25519).msm``, N = 8 and
+    ``"basic"``, then ``"padded"`` at 2^16 the same way; then every new
+    kernel instance against its twin, a row each, with registers, stack
+    and spills of the new libraries: K1, K2, K8, K9, K3-K7, K4m and K10-K12
+    at n = 39 (K1-K5 and K14 at the widths of BN462's 2^16 runs), K9-K12 at
+    ed25519's padded widths, K3-K7, K4m, K10-K12, K13 and K14 at n = 63
+    (PackedCodec, 25 rows), K13 and K14 on goldilocks's Fma51Codec and
+    PackedCodec rows.
 
 Phase 2 holds the kernels of phases 13-14 too: K1, K2, K8 and K3-K7 on each
 curve's limbs, K13 and the K14 variants on each of its codec storages.
@@ -133,6 +150,7 @@ Nothing of JAX or of the JAX package is imported: the port stands alone.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import random
@@ -242,22 +260,17 @@ def _cold_ms(torch, fn, operands, reps=REPS, rounds=5) -> float:
 def _sass_sizes(bindir: Path, lib: Path) -> dict:
     """SASS instructions and local-memory loads and stores (LDL, STL) of each
     curve kernel of the built library, Weierstrass and Edwards, and of K2,
-    by demangled name (``cuobjdump -sass`` and ``cu++filt`` of
-    the toolkit in ``bindir``)."""
-    out = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(lib)], capture_output=True,
-                         text=True, check=True, timeout=300).stdout
-    sizes, name = {}, None
-    for line in out.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            sizes[name] = [0, 0]
-        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            sizes[name][0] += 1
-            sizes[name][1] += bool(re.search(r"\b(LDL|STL)", line))
-    names = [k for k in sizes if "3msm3wei" in k or "3msm2ed" in k or "glv_digits" in k]
+    by demangled name (``testing/main_turns.sass`` and the toolkit's
+    ``cu++filt`` in ``bindir``)."""
+    from msm_zprize_tpu_torch.testing.main_turns import sass
+
+    code = sass(str(lib))
+    names = [k for k in code if "3msm3wei" in k or "3msm2ed" in k or "glv_digits" in k]
     plain = subprocess.run([str(bindir / "cu++filt")], input="\n".join(names), capture_output=True,
                            text=True, check=True, timeout=60).stdout.splitlines()
-    return {p.replace("msm::", "").replace("wei::", ""): sizes[k] for k, p in zip(names, plain)}
+    return {p.replace("msm::", "").replace("wei::", ""):
+            (len(code[k]), sum(bool(re.search(r"\b(LDL|STL)", line)) for line in code[k]))
+            for k, p in zip(names, plain)}
 
 
 def main() -> None:
@@ -281,7 +294,7 @@ def main() -> None:
     from msm_zprize_tpu_torch.fields import cuda_codec, cuda_mul, cuda_scalar
     from msm_zprize_tpu_torch.fields.barrett import BarrettReducer
     from msm_zprize_tpu_torch.fields.bytes_codec import bytes_to_limbs, limbs_to_bytes
-    from msm_zprize_tpu_torch.fields.codec import Fma51Codec
+    from msm_zprize_tpu_torch.fields.codec import Fma51Codec, PackedCodec
     from msm_zprize_tpu_torch.fields.fma51 import make_fma51_field, montmul_fma_model
     from msm_zprize_tpu_torch.fields.fp import make_field
     from msm_zprize_tpu_torch.fields.limbs import LimbScheme, unpack
@@ -302,9 +315,12 @@ def main() -> None:
     from msm_zprize_tpu_torch.testing.equivalent import field_spec
     from msm_zprize_tpu_torch.testing.points import (
         ed_expected_msm, ed_naive_msm, ed_points_with_logs, expected_msm, naive_msm,
-        points_with_logs,
+        points_with_logs, table_points_with_logs,
     )
     from msm_zprize_tpu_torch.testing import mesh_ranks
+    from msm_zprize_tpu_torch.testing.wide_curves import (
+        BN462, ED25519, TOY63_B, TOY63_P, toy63_points,
+    )
 
     if "jax" in sys.modules or "msm_zprize_tpu" in sys.modules:
         raise AssertionError("the port must import nothing of JAX or the JAX package")
@@ -325,6 +341,21 @@ def main() -> None:
             print(f"    ptxas: {line.strip()}")
     for name, (count, local) in _sass_sizes(Path(_build._nvcc()).resolve().parent, info.path).items():
         print(f"    sass: {count} instructions, {local} local loads/stores: {name}")
+    # the libraries of the shapes made on demand that phases 18 and 20 run, and
+    # of BN462's scalar module: one nvcc per source, all started now, built in
+    # the background while phases 2-17 keep the card busy
+    fields18 = dict(EXAMPLE_FIELDS)
+    fields18["n1-p97"] = 97
+    fields18["n63-p751"] = TOY63_P  # the least prime above 2^750 + 12345, 3 mod 4
+    made18 = {name: make_field(p) for name, p in fields18.items()}
+    c462 = Weierstrass.create(BN462)
+    dyn_sids = sorted({_build.field_shape(G) for G in (*made18.values(), c462.ops.F)}
+                      - set(_build.FIELD_SHAPES))
+    t_dyn = time.perf_counter()
+    dyn_pool = ThreadPoolExecutor(len(dyn_sids) + 1)
+    dyn_builds = {s: dyn_pool.submit(lambda s=s: _build.library(s)[1]) for s in dyn_sids}
+    scalar_build = dyn_pool.submit(lambda: _build.scalar_library(cuda_scalar._dims(c462.scalar))[1])
+    dyn_pool.shutdown(wait=False)
 
     rng = np.random.default_rng(SEED)
 
@@ -1504,30 +1535,34 @@ def main() -> None:
     # constants, against their twins at 65,536 lanes, a row each; n = 63
     # refused by the curve entries; then the equivalence harness on the card.
     t18 = time.perf_counter()
-    fields18 = dict(EXAMPLE_FIELDS)
-    fields18["n1-p97"] = 97
-    fields18["n63-p751"] = host_field.next_prime((1 << 750) + 12345)
-    made18 = {name: make_field(p) for name, p in fields18.items()}
     sids18 = {name: _build.field_shape(G) for name, G in made18.items()}
     dyn18 = sorted({s for s in sids18.values() if s >= _build.DYN_ID_BASE})
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(dyn18)) as pool:  # one nvcc per source of each shape, all at once
-        builds18 = dict(zip(dyn18, pool.map(lambda s: _build.library(s)[1], dyn18)))
-    print(f"[18 shapes] {len(dyn18)} shapes made on demand built together in "
-          f"{time.perf_counter() - t0:.1f} s (main library untouched: {info.path.name}); each: "
+    builds18 = {s: dyn_builds[s].result() for s in dyn18}
+    print(f"[18 shapes] {len(dyn18)} shapes made on demand, built in the background since phase 1 "
+          f"(waited {time.perf_counter() - t18:.1f} s here, {time.perf_counter() - t_dyn:.1f} s after "
+          f"the builds started; main library untouched: {info.path.name}); each: "
           + "; ".join(f"shape {s} = (n, NW) {_build.shape_layout(s)[:2]}: nvcc {b.seconds:.1f} s "
                       f"({b.path.name})" for s, b in builds18.items()))
-    for s18, b in builds18.items():  # one line a kernel: registers, stack, spills
+    def ptxas_lines(tag, log):
+        """One line a kernel of a library's build log: registers, stack, spills
+        (the storage is named where a kernel is built for several)."""
         kern, props = None, {}
-        for line in b.log.splitlines():
+        for line in log.splitlines():
             m = re.search(r"Compiling entry function '_Z\w*?\d+([a-z_]+_kernel)(\w*)'", line)
             if m:
-                kern = m.group(1) + ("<masked>" if "Lb1EEEv" in m.group(2) else "")
+                rows = re.search(r"Packed31ILi(\d+)", m.group(2))
+                store = (f" <{rows.group(1)} packed rows>" if rows else " <Fma51 rows>"
+                         if "Fma51Rows" in m.group(2) else " <limbs>" if "LimbStore" in m.group(2)
+                         else "")
+                kern = m.group(1) + ("<masked>" if "Lb1EEEv" in m.group(2) else "") + store
             elif kern and "stack frame" in line:
                 props[kern] = line.split(":")[-1].strip()
             elif kern and "Used" in line and "registers" in line:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                print(f"    ptxas shape {s18}: {kern}: {regs} registers; {props.get(kern, '')}")
+                print(f"    ptxas {tag}: {kern}: {regs} registers; {props.get(kern, '')}")
+
+    for s18, b in builds18.items():  # one line a kernel: registers, stack, spills
+        ptxas_lines(f"shape {s18}", b.log)
 
     def once_ms(fn):
         """CUDA-event ms of one fn() call, and its result."""
@@ -1653,19 +1688,6 @@ def main() -> None:
                        + (", k R random" if edwards else ", 3b R by a product"),
                        nbytes, imads)
         del P1, P2, Q1, Q2, slots, gots
-    G63 = made18["n63-p751"]
-    W63 = types.SimpleNamespace(F=G63, b3_mont=3 * G63.R % G63.p, b3_small=3,
-                                storage=cuda_curve.Storage(G63.n))
-    z63 = field_elems(G63, 4)
-    before = dict(counters.COUNTS)
-    try:
-        cuda_curve.proj_double(W63, z63, z63, z63)
-        raise AssertionError("the curve kernels took a field of 63 limbs")
-    except ValueError as err:
-        if str(_build.CURVE_MAX_LIMBS) not in str(err) or dict(counters.COUNTS) != before:
-            raise AssertionError(f"the n = 63 refusal does not name the limit, or launched: {err}")
-        print(f"[18 curve] n = 63: refused before any launch (ValueError: {err})")
-
     # the equivalence harness (testing/equivalent.py) on the card: the JAX
     # harness test's four extra fields, mul / add / sub, and inverse(0) flagged
     run18 = "phase 18 harness"
@@ -1724,6 +1746,447 @@ def main() -> None:
     print("[19 scaling_bench] bls12-377 2^16, d = 1 on NCCL (a process of its own):")
     scaling_bench.main(["bls12-377", "16", "--devices", "1", "--backend", "nccl", "--runs", "5"])
     print(f"    phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    # ---- 20. the wide fields: BN462 (n = 39), ed25519 and n = 63 ------------------------
+    # Queue 3's last kernels through the normal entry points: the curve
+    # kernels of shapes made on demand up to n = 63, K2 on a scalar module of
+    # other sizes (its own library), K13 and K14 on the codec rows of shapes
+    # made on demand. BN462 (testing/wide_curves.py: 15 words, 15 packed rows,
+    # a 39-limb scalar module) runs Weierstrass.create(BN462).msm at N = 8 in
+    # every mode and at 2^16 in "projective" and "packed"; ed25519 (the
+    # 9-word shape) runs TwistedEdwards.create(ED25519).msm at N = 8 and at
+    # 2^16 "padded". Then every new kernel instance against its twin, a row
+    # each: at n = 39 K1, K2, K3, K4, K5 and K14 at the widths of BN462's
+    # 2^16 runs (read from cuda_curve.LAUNCH_LOG), the others at 65,536
+    # lanes; ed25519's K9-K12 at the widths of its padded run; at n = 63
+    # (phase 18's 751-bit field) the limb curve kernels and K13/K14 on its 25
+    # packed rows at 65,536 lanes, on points of y^2 = x^3 + 7 with random Z;
+    # K13/K14 on goldilocks's Fma51Codec and PackedCodec rows. Twins run
+    # once (their time is that call's).
+    t20 = time.perf_counter()
+    c255 = TwistedEdwards.create(ED25519)
+    G39, G63, Ggl, S462 = c462.ops.F, made18["n63-p751"], made18["goldilocks"], c462.scalar
+    dims462 = cuda_scalar._dims(S462)
+    sid39 = _build.field_shape(G39)
+    b39, bsc = dyn_builds[sid39].result(), scalar_build.result()
+    print(f"[20 builds] BN462's field shape {sid39} ((n, NW) {_build.shape_layout(sid39)[:2]}, "
+          f"{_build.shape_rows(sid39)} packed rows): nvcc {b39.seconds:.1f} s ({b39.path.name}); "
+          f"its scalar module {dims462} (n, n_half, n_acc, K0, n_m, words of s): nvcc "
+          f"{bsc.seconds:.1f} s ({bsc.path.name}); both built in the background since phase 1 "
+          f"(n = 63, ed25519's and goldilocks's shapes: phase 18's libraries)")
+    ptxas_lines(f"shape {sid39}", b39.log)
+    ptxas_lines("BN462 scalar module", bsc.log)
+
+    # BN462: N = 8 and edge cases against both host oracles, then the other
+    # modes at N = 8 with random Z / random points / a subgroup check (K6)
+    small_msms("bn462", 20, c462, BN462, points_with_logs, expected_msm, naive_msm)
+    pts8, logs8 = points_with_logs(BN462, 8, seed=SEED + 3)
+    points8 = c462.points_from_ints(pts8, dev)
+    scal8 = c462.random_scalars(8, seed=SEED + 3, device=dev)
+    want8 = expected_msm(BN462, c462.scalar.unpack(scal8.cpu()), logs8)
+    z8 = field_elems(G39, 8)
+    proj8 = ProjectivePoints(G39.montmul(points8.x, z8), G39.montmul(points8.y, z8), z8)
+    for what, run, keys, absent in (
+        ("msm(mode='packed')", lambda: c462.msm(scal8, points8, mode="packed"), *codec_run("packed")),
+        ("msm(mode='affine')", lambda: c462.msm(scal8, points8, mode="affine"),
+         glv + (cuda_mul.K8, cuda_curve.K7) + finals, ()),
+        ("msm_unsafe(mode='affine')", lambda: c462.msm_unsafe(scal8, points8, mode="affine"),
+         glv + (cuda_mul.K8, cuda_curve.K7) + finals, ()),
+        ("msm(mode='halving')", lambda: c462.msm(scal8, points8, mode="halving"),
+         glv + (cuda_curve.K4M,) + finals, ()),
+        ("msm_projective (random Z)", lambda: c462.msm_projective(scal8, proj8),
+         (cuda_scalar.K9,) + finals, ()),
+    ):
+        drive(f"bn462 N=8 {what}", run, keys, equals_known(f"bn462 N=8 {what}", c462, want8),
+              absent=absent)
+    del proj8
+    counters.reset()
+    qP = c462.ops.proj_scale_const(BN462.order, c462.ops.from_affine(points8))
+    torch.cuda.synchronize()
+    counts = run_counts["bn462 N=8 subgroup check"] = counters.snapshot()
+    if not bool(G39.is_zero(qP.Z).all()):
+        raise AssertionError("bn462: q P != 0 on the card")
+    print(f"    bn462: q P = 0 on the card for its N = 8 points (launches "
+          f"{launches_of(counts, (cuda_curve.K6, cuda_curve.K4), 'bn462 subgroup check')})")
+
+    # BN462 at 2^16: points of known logs made on the card (K7 over 8 tables
+    # of known-log bases), "projective" and "packed" against the known-log sum
+    t0 = time.perf_counter()
+    points462, expected462 = table_points_with_logs(c462, N, seed=SEED, device=dev)
+    scal462 = c462.random_scalars(N, seed=SEED + 1, device=dev)
+    want462 = expected462(scal462)
+    print(f"[20 msm 2^{LOG_N}] bn462: each result equals (sum s_i a_i mod q) G (points of known logs "
+          f"made on the card, {time.perf_counter() - t0:.1f} s with the host's bases)")
+    widths20 = {}  # (curve, counter) -> the launches' (width, k) in the run of its path
+    for mode, (keys, absent) in (("projective", (glv + (cuda_curve.K3,) + finals, all_codec)),
+                                 ("packed", codec_run("packed"))):
+        what = f"bn462 msm(mode='{mode}') 2^16"
+        cuda_curve.LAUNCH_LOG = []
+        drive(what, lambda mode=mode: c462.msm(scal462, points462, mode=mode), keys,
+              equals_known(what, c462, want462), absent=absent)
+        for key, width, k, *_ in cuda_curve.LAUNCH_LOG:
+            widths20.setdefault(("bn462", key), set()).add((width, k))
+        cuda_curve.LAUNCH_LOG = None
+
+    # ed25519: N = 8 and edge cases, the basic mode, and 2^16 padded
+    small_msms("ed25519", 20, c255, ED25519, ed_points_with_logs, ed_expected_msm, ed_naive_msm)
+    epts8, elogs8 = ed_points_with_logs(ED25519, 8, seed=SEED + 3)
+    escal8 = c255.random_scalars(8, seed=SEED + 3, device=dev)
+    drive("ed25519 N=8 msm(mode='basic')",
+          lambda: c255.msm(escal8, c255.points_from_ints(epts8, dev), mode="basic"),
+          (cuda_scalar.K9, cuda_edwards.K11, cuda_edwards.K12),
+          equals_known("ed25519 N=8 msm(mode='basic')", c255,
+                       ed_expected_msm(ED25519, c255.scalar.unpack(escal8.cpu()), elogs8)))
+    t0 = time.perf_counter()
+    points255, expected255 = table_points_with_logs(c255, N, seed=SEED, device=dev)
+    scal255 = c255.random_scalars(N, seed=SEED + 1, device=dev)
+    print(f"[20 msm 2^{LOG_N}] ed25519: the result equals (sum s_i a_i mod l) B (points of known "
+          f"logs made on the card, {time.perf_counter() - t0:.1f} s)")
+    ed255_run = "ed25519 msm(mode='padded') 2^16"
+    cuda_curve.LAUNCH_LOG = []
+    drive(ed255_run, lambda: c255.msm(scal255, points255),
+          (cuda_mul.KERNEL, cuda_mul.K8, cuda_scalar.K9, cuda_edwards.K10, cuda_edwards.K11,
+           cuda_edwards.K12), equals_known(ed255_run, c255, expected255(scal255)))
+    for key, width, k, *_ in cuda_curve.LAUNCH_LOG:
+        widths20.setdefault(("ed25519", key), set()).add((width, k))
+    cuda_curve.LAUNCH_LOG = None
+
+    # the kernel rows
+    proj462, packed462 = "bn462 msm(mode='projective') 2^16", "bn462 msm(mode='packed') 2^16"
+
+    def widest(curve_, key):
+        return max(widths20[(curve_, key)])
+
+    def row20(key, name, kid, source, line, run, counter, G, launch, plain, shape, work, keep=None,
+              err_of=None):
+        """One phase-20 row: the kernel against its twin (run once, timed
+        by that call), the kernel timed by CUDA-graph replay; ``keep`` =
+        (mask, P1): lanes where mask == 0 must be P1's rows bit for bit."""
+        got = launch()
+        plain_ms, want = once_ms(plain)
+        err = (err_of or (lambda g, w: curve_err(G, g, w)))(got, want)
+        if keep is not None:
+            off = keep[0] == 0
+            err = max(err, raw_err([g[:, off] for g in got], [a[:, off] for a in keep[1]]))
+        kernel_row(key, name, kid, source, line, run, counter, err, _graph_ms(torch, launch),
+                   plain_ms, shape, *work)
+
+    def curve_rows(tag, G, Wc, E, point, aff, elem, widths, runs, source, codec=None):
+        """Every curve kernel on one storage of G, a row each: K3-K7 (and,
+        on limbs, K10-K12 with E's random k), each at its (width, k) in
+        ``widths``, on projective points from ``point`` (X, Y, Z), affine
+        ones from ``aff`` (x, y) and, for the Edwards kernels, field values
+        from ``elem``; the run that gives each row's launches is
+        ``runs[kernel]``."""
+        n, nw, _ = _build.shape_layout(_build.field_shape(G))
+        rw, tail = divmod(12 * n, 32)
+        mm = mont_imads(nw, tail > 0, rw)
+        nr = n if codec is None else codec.rows
+        pre, keys = ("", {k: k for k in cuda_curve.KERNEL_IDS}) if codec is None else (
+            ("k14_fma51_", cuda_curve.K14_FMA51) if isinstance(codec, Fma51Codec)
+            else ("k14_", cuda_curve.K14))
+        err_of = ((lambda g, w: curve_err(G, g, w)) if codec is None
+                  else (lambda g, w: rows_err(G, codec, g, w)))
+        cname = "" if codec is None else f"_{type(codec).__name__}"
+        kid = (lambda k: k) if codec is None else (lambda k: "K14-" + k)
+        for kernel, line in ((cuda_curve.K3, 372), (cuda_curve.K4, 382), (cuda_curve.K4M, 382),
+                             (cuda_curve.K5, 324), (cuda_curve.K6, 394), (cuda_curve.K7, 397)):
+            width, k = widths[kernel]
+            short = kernel.split("_")[0]
+            if kernel == cuda_curve.K3:
+                x1, y1 = aff(width)
+                x2, y2 = aff(width)
+                a = [x1, y1, flags(width), flags(width), x2, y2, flags(width), flags(width)]
+                call = (lambda a=a: cuda_curve.aff_pair_add(Wc, *a),
+                        lambda a=a: cuda_curve.aff_pair_add_plain(Wc, *a), None, None)
+            elif kernel in (cuda_curve.K4, cuda_curve.K4M):
+                a = [*point(width), *point(width)]
+                m = flags(width) if kernel == cuda_curve.K4M else None
+                call = (lambda a=a, m=m: cuda_curve.proj_add(Wc, *a, mask=m),
+                        lambda a=a, m=m: cuda_curve.proj_add_plain(Wc, *a, mask=m),
+                        None if m is None else int(m.sum()), None if m is None else (m, a[:3]))
+            elif kernel == cuda_curve.K5:
+                a = list(point(width))
+                call = (lambda a=a, k=k: cuda_curve.proj_double_k(Wc, *a, k),
+                        lambda a=a, k=k: cuda_curve.proj_double_k_plain(Wc, *a, k), None, None)
+            elif kernel == cuda_curve.K6:
+                a = list(point(width))
+                call = (lambda a=a: cuda_curve.proj_double(Wc, *a),
+                        lambda a=a: cuda_curve.proj_double_plain(Wc, *a), None, None)
+            else:
+                a = [*point(width), *aff(width)]
+                i7 = flags(width)
+                call = (lambda a=a, i7=i7: cuda_curve.proj_add_mixed(Wc, *a, i7),
+                        lambda a=a, i7=i7: cuda_curve.proj_add_mixed_plain(Wc, *a, i7),
+                        int(i7.eq(0).sum()), (i7.eq(0).int(), a[:3]))
+            launch, plain, computing, keep = call
+            # K3 as phase 2 holds it: mod p (its outputs need not be below 2p)
+            row_err = ((lambda g, w: mod_p_err(G, g, w)) if codec is None and kernel == cuda_curve.K3
+                       else err_of)
+            row20(f"{pre}{short}_{tag}", f"{kernel.split('_', 1)[1]}{cname}_{tag}",
+                  kid({"k4m": "K4m"}.get(short, short.upper())), source,
+                  curve_line(line if codec is None else 149), runs[kernel], keys[kernel], G,
+                  launch, plain, f"W={width}{f', k={k}' if k else ''}, {nr} rows",
+                  curve_work(pre + kernel, nr, mm, width, k, computing), keep, row_err)
+            del a
+        if codec is not None:
+            x, y = aff(N)
+            fma = isinstance(codec, Fma51Codec)
+            row20(f"k13{'_fma51' if fma else ''}_{tag}", f"montmul_rows{cname}_{tag}", "K13",
+                  "montmul.cu", "msm_zprize_tpu/fields/fma51_pallas.py:302", runs["k13"],
+                  cuda_codec.K13_FMA51 if fma else cuda_codec.K13, G,
+                  lambda: [cuda_codec.montmul_rows(G, codec, x, y)],
+                  lambda: [cuda_codec.montmul_rows_plain(G, codec, x, y)],
+                  f"({nr}, {N}), n = {n}", (3 * nr * 4 * N, mm * N), err_of=err_of)
+            del x, y
+            return
+        edw = "msm_zprize_tpu/curves/pallas_curve.py:{}".format
+        for kernel, line in ((cuda_edwards.K10, 449), (cuda_edwards.K11, 500),
+                             (cuda_edwards.K11M, 500), (cuda_edwards.K12, 494)):
+            width, k = widths[kernel]
+            short = kernel.split("_")[0]
+            if kernel == cuda_edwards.K10:
+                x1, y1 = aff(width)
+                x2, y2 = aff(width)
+                a = [x1, y1, flags(width), flags(width), x2, y2, flags(width), flags(width)]
+                launch = lambda a=a: cuda_edwards.ed_pair_add(E, *a)
+                plain = lambda a=a: cuda_edwards.ed_pair_add_plain(E, *a)
+                computing = keep = None
+            elif kernel == cuda_edwards.K12:
+                a = [elem(width) for _ in range(4)]
+                launch = lambda a=a, k=k: cuda_edwards.ed_double_k(E, *a, k)
+                plain = lambda a=a, k=k: cuda_edwards.ed_double_k_plain(E, *a, k)
+                computing = keep = None
+            else:
+                a = [elem(width) for _ in range(8)]
+                m = flags(width) if kernel == cuda_edwards.K11M else None
+                launch = lambda a=a, m=m: cuda_edwards.ed_add(E, *a, mask=m)
+                plain = lambda a=a, m=m: cuda_edwards.ed_add_plain(E, *a, mask=m)
+                computing, keep = (None, None) if m is None else (int(m.sum()), (m, a[:4]))
+            row20(f"{short}_{tag}", f"{kernel.split('_', 1)[1]}_{tag}", "K11" if short == "k11m"
+                  else short.upper(), "edwards.cu", edw(line), runs[kernel], kernel, G, launch,
+                  plain, f"W={width}{f', k={k}' if k else ''}, {n} rows",
+                  curve_work(kernel, n, mm, width, k, computing), keep,
+                  (lambda g, w: mod_p_err(G, g, w)) if kernel == cuda_edwards.K10 else None)
+            del a
+
+    # n = 39, limbs: K1 (beta x), K2 and K3-K5 at the projective run's widths;
+    # K4m, K7 and K8 in the N = 8 modes (K8 at the one lane of batch_inverse);
+    # K6 in the subgroup check; the Edwards kernels (no BN462 path: a run of
+    # their own), each at 65,536 lanes
+    n39, nw39, _ = _build.shape_layout(sid39)
+    mm39 = mont_imads(nw39, 12 * n39 % 32 > 0, 12 * n39 // 32)
+    x, y = field_elems(G39, N, (2 * G39.p - 1,)), field_elems(G39, N, (4 * G39.p - 1,))
+    row20("k1_bn462", "montmul_bn462", "K1", "montmul.cu", "msm_zprize_tpu/fields/pallas_mul.py:167",
+          proj462, cuda_mul.KERNEL, G39, lambda: [cuda_mul.montmul(G39, x, y)],
+          lambda: [G39.montmul_plain(x, y)], f"({n39}, {N}), shape {sid39}",
+          (3 * n39 * 4 * N, mm39 * N), err_of=lambda g, w: mod_p_err(G39, g, w))
+    e = G39.p - 2
+    products = cuda_mul.exp_products(cuda_mul.exp_chain(e))
+    row20("k8_bn462", "exp_const_bn462", "K8", "montmul.cu", "msm_zprize_tpu/fields/pallas_mul.py:237",
+          "bn462 N=8 msm(mode='affine')", cuda_mul.K8, G39,
+          lambda: [cuda_mul.exp_const(G39, x[:, :1], e)], lambda: [G39.exp_const_plain(x[:, :1], e)],
+          f"({n39}, 1), e = p - 2 ({products} products, one thread a lane)",
+          (2 * n39 * 4, products * mm39))
+    del x, y
+    cg = window_size("batched-affine", LOG_N)
+    Kg = default_windows(S462.max_bits, cg)
+    worst = 0
+    for c_ in sorted({8, 13, cg} | set(WIDE_CS)):
+        K_ = default_windows(S462.max_bits, c_)
+        for width in (1, 1000, N):
+            scal = c462.random_scalars(width, seed=SEED + width, device=dev)
+            for inf in (None, flags(2 * width)):
+                worst = max(worst, raw_err(cuda_scalar.glv_digits(S462, scal, c_, K_, inf),
+                                           cuda_scalar.glv_digits_plain(S462, scal, c_, K_, inf)))
+            K9_ = default_windows(S462.bits, c_)
+            worst = max(worst, raw_err(cuda_scalar.simple_digits(scal, c_, K9_),
+                                       signed_digits(scal, c_, K9_, 12)))
+    if worst:
+        raise AssertionError(f"K2 / K9 on BN462's scalars are not bit-identical to the twins: {worst}")
+    print(f"[20 kernel] K2 (BN462's module, its own library) and K9 on BN462's 39-limb scalars: "
+          f"bit-identical to the twins at c = {sorted({8, 13, cg} | set(WIDE_CS))}, W = 1, 1000, "
+          f"{N}, K2 without and with the mask")
+    scal, inf = c462.random_scalars(N, seed=SEED, device=dev), flags(2 * N)
+    sw, mw, vw, aw = dims462[5], -(-12 * dims462[4] // 32), -(-12 * dims462[1] // 32), -(-12 * dims462[2] // 32)
+    row20("k2_bn462", "glv_digits_bn462", "K2", "glv_digits.cu",
+          "msm_zprize_tpu/fields/pallas_scalar.py:279", proj462, cuda_scalar.KERNEL, G39,
+          lambda: cuda_scalar.glv_digits(S462, scal, cg, Kg, inf),
+          lambda: cuda_scalar.glv_digits_plain(S462, scal, cg, Kg, inf),
+          f"N={N}, c={cg}, K={Kg}, masked; words (s, m, v, acc) {(sw, mw, vw, aw)}",
+          glv_digits_work(N, S462.n, Kg, (sw, mw, vw, aw)), err_of=raw_err)
+    K9g = default_windows(S462.bits, cg)
+    row20("k9_bn462", "simple_digits_bn462", "K9", "glv_digits.cu",
+          "msm_zprize_tpu/fields/pallas_scalar.py:239", "bn462 N=8 msm_projective (random Z)",
+          cuda_scalar.K9, G39, lambda: cuda_scalar.simple_digits(scal, cg, K9g),
+          lambda: signed_digits(scal, cg, K9g, 12), f"N={N}, c={cg}, K={K9g}, n = {S462.n}",
+          ((S462.n + 2 * K9g) * 4 * N, 0), err_of=raw_err)
+    del scal, inf
+
+    crng = random.Random(SEED)
+    E39 = types.SimpleNamespace(F=G39, k_mont=crng.randrange(2, G39.p) * G39.R % G39.p,
+                                two_mont=2 * G39.R % G39.p)
+    ed39_run = "phase 20 Edwards kernels on n = 39"
+    w65 = (N, 0)
+    widths39 = {cuda_curve.K3: widest("bn462", cuda_curve.K3), cuda_curve.K4: widest("bn462", cuda_curve.K4),
+                cuda_curve.K4M: w65, cuda_curve.K5: widest("bn462", cuda_curve.K5),
+                cuda_curve.K6: w65, cuda_curve.K7: w65, cuda_edwards.K10: w65, cuda_edwards.K11: w65,
+                cuda_edwards.K11M: w65, cuda_edwards.K12: (N, 3)}
+    runs39 = {cuda_curve.K3: proj462, cuda_curve.K4: proj462, cuda_curve.K5: proj462,
+              cuda_curve.K4M: "bn462 N=8 msm(mode='halving')", cuda_curve.K6: "bn462 N=8 subgroup check",
+              cuda_curve.K7: "bn462 N=8 msm(mode='affine')", **{k: ed39_run for k in (
+                  cuda_edwards.K10, cuda_edwards.K11, cuda_edwards.K11M, cuda_edwards.K12)}}
+    elem39 = lambda width: field_elems(G39, width, (2 * G39.p - 1, 2 * G39.p - 2))
+    aff39 = lambda width: (elem39(width), elem39(width))
+    point39 = lambda width: (elem39(width), elem39(width), elem39(width))
+    counters.reset()  # the Edwards kernels' run on n = 39: each launched once
+    a = [field_elems(G39, 64) for _ in range(8)]
+    f4 = [flags(64) for _ in range(4)]
+    cuda_edwards.ed_pair_add(E39, a[0], a[1], f4[0], f4[1], a[2], a[3], f4[2], f4[3])
+    cuda_edwards.ed_add(E39, *a)
+    cuda_edwards.ed_add(E39, *a, mask=f4[0])
+    cuda_edwards.ed_double_k(E39, *a[:4], 3)
+    torch.cuda.synchronize()
+    run_counts[ed39_run] = counters.snapshot()
+    del a
+    curve_rows("bn462", G39, c462.ops, E39, point39, aff39, elem39, widths39, runs39, "curve.cu")
+    # n = 39 on 15 PackedCodec rows: K14's widths from the packed run, K4m,
+    # K6, K7 (on no codec-mode path) at 4,096 lanes
+    Wp, pc = c462.ops_packed, c462.ops_packed.codec
+    enc = lambda t: pc.from_digits(G39, t)
+    wsmall = (SMALL, 0)
+    curve_rows("bn462", G39, Wp, None, lambda w: tuple(map(enc, point39(w))),
+               lambda w: tuple(map(enc, aff39(w))), None,
+               {cuda_curve.K3: widest("bn462", cuda_curve.K14[cuda_curve.K3]),
+                cuda_curve.K4: widest("bn462", cuda_curve.K14[cuda_curve.K4]),
+                cuda_curve.K5: widest("bn462", cuda_curve.K14[cuda_curve.K5]),
+                cuda_curve.K4M: wsmall, cuda_curve.K6: wsmall, cuda_curve.K7: wsmall},
+               dict.fromkeys((cuda_curve.K3, cuda_curve.K4, cuda_curve.K5, cuda_curve.K4M,
+                              cuda_curve.K6, cuda_curve.K7, "k13"), packed462),
+               "curve_codec.cu", pc)
+
+    # ed25519's padded path (9 words): K9, K10, K11, K12 at its run's widths
+    S255, G25 = c255.scalar, c255.ops.F
+    ce = window_size("edwards", LOG_N)
+    Ke = default_windows(S255.bits, ce)
+    scal = c255.random_scalars(N, seed=SEED, device=dev)
+    row20("k9_ed25519", "simple_digits_ed25519", "K9", "glv_digits.cu",
+          "msm_zprize_tpu/fields/pallas_scalar.py:239", ed255_run, cuda_scalar.K9, G25,
+          lambda: cuda_scalar.simple_digits(scal, ce, Ke), lambda: signed_digits(scal, ce, Ke, 12),
+          f"N={N}, c={ce}, K={Ke}, n = {S255.n}", ((S255.n + 2 * Ke) * 4 * N, 0), err_of=raw_err)
+    del scal
+    n25, nw25, _ = _build.shape_layout(_build.field_shape(G25))
+    mm25 = mont_imads(nw25, 12 * n25 % 32 > 0, 12 * n25 // 32)
+    e25 = c255.ops
+    for kernel, line, (width, k) in (
+        (cuda_edwards.K10, 449, widest("ed25519", cuda_edwards.K10)),
+        (cuda_edwards.K11, 500, widest("ed25519", cuda_edwards.K11)),
+        (cuda_edwards.K12, 494, min(w for w in widths20[("ed25519", cuda_edwards.K12)] if w[0] > 1)),
+    ):
+        short = kernel.split("_")[0]
+        if kernel == cuda_edwards.K10:
+            a = [field_elems(G25, width), field_elems(G25, width), flags(width), flags(width),
+                 field_elems(G25, width), field_elems(G25, width), flags(width), flags(width)]
+            launch, plain = (lambda a=a: cuda_edwards.ed_pair_add(e25, *a),
+                             lambda a=a: cuda_edwards.ed_pair_add_plain(e25, *a))
+        elif kernel == cuda_edwards.K11:
+            a = [field_elems(G25, width) for _ in range(8)]
+            launch, plain = (lambda a=a: cuda_edwards.ed_add(e25, *a),
+                             lambda a=a: cuda_edwards.ed_add_plain(e25, *a))
+        else:
+            a = [field_elems(G25, width) for _ in range(4)]
+            launch, plain = (lambda a=a, k=k: cuda_edwards.ed_double_k(e25, *a, k),
+                             lambda a=a, k=k: cuda_edwards.ed_double_k_plain(e25, *a, k))
+        row20(f"{short}_ed25519", f"{kernel.split('_', 1)[1]}_ed25519", short.upper(), "edwards.cu",
+              f"msm_zprize_tpu/curves/pallas_curve.py:{line}", ed255_run, kernel, G25, launch, plain,
+              f"W={width}{f', k={k}' if k else ''}, {n25} rows (9 words)",
+              curve_work(kernel, n25, mm25, width, k),
+              err_of=(lambda g, w: mod_p_err(G25, g, w)) if kernel == cuda_edwards.K10 else None)
+        del a
+
+    # n = 63 (24 words): points of y^2 = x^3 + 7, 1,024 made on the host,
+    # tiled over the lanes, in projective form with a random Z a lane; every
+    # curve kernel on limbs and on its 25 PackedCodec rows, each launched
+    # once in a run of its own
+    p63 = G63.p
+    host63 = toy63_points(1024, seed=SEED)
+    ax63 = torch.as_tensor(G63.pack([pt[0] for pt in host63]), device=dev)
+    ay63 = torch.as_tensor(G63.pack([pt[1] for pt in host63]), device=dev)
+    tile = lambda t, w: t.repeat(1, -(-w // t.shape[1]))[:, :w].contiguous()
+    aff63 = lambda w: (tile(ax63, w), tile(ay63, w))
+
+    def point63(width):
+        z = field_elems(G63, width)
+        x, y = aff63(width)
+        return cuda_mul.montmul(G63, x, z), cuda_mul.montmul(G63, y, z), z
+
+    W63 = types.SimpleNamespace(F=G63, b3_mont=3 * TOY63_B * G63.R % p63, b3_small=3 * TOY63_B,
+                                storage=cuda_curve.Storage(G63.n))
+    E63 = types.SimpleNamespace(F=G63, k_mont=crng.randrange(2, p63) * G63.R % p63,
+                                two_mont=2 * G63.R % p63)
+    pc63 = PackedCodec(p63)
+    Wp63 = types.SimpleNamespace(F=G63, b3_mont=W63.b3_mont, b3_small=W63.b3_small,
+                                 storage=cuda_curve.Storage.of_codec(pc63), codec=pc63)
+    enc63 = lambda t: pc63.from_digits(G63, t)
+    run63 = "phase 20 curve and codec kernels on n = 63"
+    counters.reset()  # each n = 63 kernel launched once
+    for Wc, enc_ in ((W63, lambda t: t), (Wp63, enc63)):
+        P1 = [enc_(t) for t in point63(64)]
+        x2, y2 = map(enc_, aff63(64))
+        f4 = [flags(64) for _ in range(4)]
+        cuda_curve.aff_pair_add(Wc, x2, y2, f4[0], f4[1], x2, y2, f4[2], f4[3])
+        cuda_curve.proj_add(Wc, *P1, *P1)
+        cuda_curve.proj_add(Wc, *P1, *P1, mask=f4[0])
+        cuda_curve.proj_double_k(Wc, *P1, 2)
+        cuda_curve.proj_double(Wc, *P1)
+        cuda_curve.proj_add_mixed(Wc, *P1, x2, y2, f4[1])
+    cuda_codec.montmul_rows(G63, pc63, x2, y2)
+    a = [field_elems(G63, 64) for _ in range(8)]
+    cuda_edwards.ed_pair_add(E63, a[0], a[1], f4[0], f4[1], a[2], a[3], f4[2], f4[3])
+    cuda_edwards.ed_add(E63, *a)
+    cuda_edwards.ed_add(E63, *a, mask=f4[0])
+    cuda_edwards.ed_double_k(E63, *a[:4], 3)
+    torch.cuda.synchronize()
+    run_counts[run63] = counters.snapshot()
+    del a
+    widths63 = {k: (N, 3 if k in (cuda_curve.K5, cuda_edwards.K12) else 0) for k in (
+        cuda_curve.K3, cuda_curve.K4, cuda_curve.K4M, cuda_curve.K5, cuda_curve.K6, cuda_curve.K7,
+        cuda_edwards.K10, cuda_edwards.K11, cuda_edwards.K11M, cuda_edwards.K12)}
+    runs63 = collections.defaultdict(lambda: run63)
+    curve_rows("n63", G63, W63, E63, point63, aff63, lambda w: field_elems(G63, w), widths63,
+               runs63, "curve.cu")
+    curve_rows("n63", G63, Wp63, None, lambda w: tuple(map(enc63, point63(w))),
+               lambda w: tuple(map(enc63, aff63(w))), None, widths63, runs63, "curve_codec.cu", pc63)
+
+    # goldilocks (3 words): K13 and K14 on Fma51Codec and PackedCodec rows
+    gl_run, w64 = "phase 20 codec kernels on goldilocks", 64
+    Wgl = {}
+    for codec in (Fma51Codec(Ggl.p), PackedCodec(Ggl.p)):
+        Wgl[codec] = types.SimpleNamespace(F=Ggl, b3_mont=21 * Ggl.R % Ggl.p, b3_small=21,
+                                           storage=cuda_curve.Storage.of_codec(codec), codec=codec)
+    counters.reset()
+    for codec, Wc in Wgl.items():
+        enc_gl = lambda t, codec=codec: codec.from_digits(Ggl, t)
+        P1 = [enc_gl(field_elems(Ggl, w64)) for _ in range(3)]
+        f4 = [flags(w64) for _ in range(4)]
+        cuda_curve.aff_pair_add(Wc, P1[0], P1[1], f4[0], f4[1], P1[1], P1[2], f4[2], f4[3])
+        cuda_curve.proj_add(Wc, *P1, *P1)
+        cuda_curve.proj_add(Wc, *P1, *P1, mask=f4[0])
+        cuda_curve.proj_double_k(Wc, *P1, 2)
+        cuda_curve.proj_double(Wc, *P1)
+        cuda_curve.proj_add_mixed(Wc, *P1, P1[0], P1[1], f4[1])
+        cuda_codec.montmul_rows(Ggl, codec, P1[0], P1[1])
+    torch.cuda.synchronize()
+    run_counts[gl_run] = counters.snapshot()
+    for codec, Wc in Wgl.items():
+        enc_gl = lambda t, codec=codec: codec.from_digits(Ggl, t)
+        curve_rows("goldilocks", Ggl, Wc, None,
+                   lambda w, e=enc_gl: tuple(e(field_elems(Ggl, w)) for _ in range(3)),
+                   lambda w, e=enc_gl: (e(field_elems(Ggl, w)), e(field_elems(Ggl, w))), None,
+                   widths63,
+                   collections.defaultdict(lambda: gl_run), "curve_pallas_codec.cu"
+                   if isinstance(codec, Fma51Codec) else "curve_codec.cu", codec)
+    print(f"    phase 20 took {time.perf_counter() - t20:.1f} s")
 
     # ---- the kernel table --------------------------------------------------------------
     # each row's launches: its counter in the run it names; 0 only where the

@@ -12,10 +12,13 @@ the stream it is given, never synchronises, and returns
 A field outside the four shapes of that library (``FIELD_SHAPES``) gets a
 shape made on demand (``csrc/field.cuh``'s DynShape): ``field_shape``
 derives its ID from (n, p), and ``library(shape)`` builds, at first use, a
-library of that shape alone (K1 and K8 from ``montmul.cu``; for n <= 33 the
-limb-storage curve kernels from ``curve.cu`` and ``edwards.cu``), cached by
-the same hash and the shape. It never rebuilds the main library, and a
-failed build raises.
+library of that shape alone (K1, K8 and K13 from ``montmul.cu``, the curve
+kernels on limbs and on the shape's codec rows from ``curve.cu``,
+``curve_codec.cu`` and ``curve_pallas_codec.cu``, the Edwards kernels from
+``edwards.cu``), cached by the same hash and the shape. A GLV scalar module
+of other sizes than the main library's K2 takes (``GLV_MAIN_DIMS``) gets
+``scalar_library(dims)`` the same way (K2 from ``glv_digits.cu``). Neither
+ever rebuilds the main library, and a failed build raises.
 
 Counterpart of the JAX package's build-on-first-use idiom
 (``native/Makefile``, ``msm_zprize_tpu/utils/native_codec.py``).
@@ -35,8 +38,8 @@ from pathlib import Path
 
 __all__ = [
     "BuildInfo", "library", "check", "ptrs", "ints", "stream_of",
-    "on_cpu", "rows", "flags", "field_shape", "shape_layout", "field_words", "codec_arg",
-    "curve_shape", "CURVE_MAX_LIMBS", "MAX_LIMBS",
+    "on_cpu", "rows", "flags", "field_shape", "shape_layout", "shape_rows", "field_words",
+    "codec_arg", "scalar_library", "GLV_MAIN_DIMS", "MAX_LIMBS",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -78,14 +81,20 @@ _ENTRIES = {
 # (ed-on-bls12-377 and Pallas both have n = 22): field_shape derives the ID
 # from (n, p), and the C entries take the ID.
 FIELD_SHAPES = {1: (32, 12, False), 2: (22, 8, False), 3: (33, 12, False), 4: (22, 8, True)}
-# Shapes made on demand (csrc/field.cuh::DynShape): ID = DYN_ID_BASE + 32 n +
-# NW, with NW the fewest words with 8p < 2^(32 NW) and at least the 12 n div
-# 32 full reduction rounds, for every limb count the limb code takes (n = 1..63:
-# MontgomeryFp's 2 n 2^24 < 2^31); the curve kernels are built for n <= 33,
-# the widest curve field of the repository (BLS12-381).
+# Shapes made on demand (csrc/field.cuh::DynShape): ID = DYN_ID_BASE + ROW_ID
+# ROWS + 32 n + NW, with NW the fewest words with 8p < 2^(32 NW) and at least
+# the 12 n div 32 full reduction rounds, and ROWS the rows of p's PackedCodec
+# (the codec kernels' row count, a compile-time size of the shape's library),
+# for every limb count the limb code takes (n = 1..63: MontgomeryFp's
+# 2 n 2^24 < 2^31). Every kernel on field values takes all of them.
 DYN_ID_BASE = 1024
+ROW_ID = 2048  # above 32 n + NW for every n <= 63
 MAX_LIMBS = 63
-CURVE_MAX_LIMBS = 33
+# (n, n_half, n_acc, K0 limbs, limbs of m_i, words of s) of the GlvScalar
+# modules the main library's K2 is built for (BLS12-377's, BLS12-381's and
+# Pallas's; csrc/glv_digits.cu); any other w = 12 module takes
+# scalar_library(its dims).
+GLV_MAIN_DIMS = (22, 11, 13, 23, 13, 8)
 
 
 @dataclass(frozen=True)
@@ -168,10 +177,11 @@ def _library_of(shape: int) -> tuple[ctypes.CDLL, BuildInfo]:
     if shape < DYN_ID_BASE:
         return _load(info := _build()), info
     n, nw, _ = shape_layout(shape)
+    rows = shape_rows(shape)
     defines = ("-DMSM_DYN_SHAPE", f"-DMSM_DYN_ID={shape}", f"-DMSM_DYN_NL={n}",
-               f"-DMSM_DYN_NW={nw}", f"-DMSM_DYN_TAIL={12 * n % 32}")
-    sources = ["montmul.cu"] + (["curve.cu", "edwards.cu"] if n <= CURVE_MAX_LIMBS else [])
-    info = _build(f"shape{n}x{nw}", sources, defines)
+               f"-DMSM_DYN_NW={nw}", f"-DMSM_DYN_TAIL={12 * n % 32}", f"-DMSM_DYN_ROWS={rows}")
+    sources = ["montmul.cu", "curve.cu", "curve_codec.cu", "curve_pallas_codec.cu", "edwards.cu"]
+    info = _build(f"shape{n}x{nw}r{rows}", sources, defines)
     return _load(info), info
 
 
@@ -180,6 +190,19 @@ def library(shape: int | None = None) -> tuple[ctypes.CDLL, BuildInfo]:
     (an ID of ``field_shape``; None or a shape of FIELD_SHAPES: the main
     library, which also holds the scalar kernels), argtypes declared."""
     return _library_of(shape if shape is not None and shape >= DYN_ID_BASE else 1)
+
+
+@functools.cache
+def scalar_library(dims: tuple) -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build (or reuse) and load K2's library for a GlvScalar module of the
+    sizes ``dims`` (as GLV_MAIN_DIMS lists them, for a module the main
+    library's K2 does not take): csrc/glv_digits.cu with each size a macro
+    of its own (nvcc splits one -D at its commas), into
+    build/libmsm_scalar<sizes>_<hash>.so."""
+    names = ("NS", "NH", "NACC", "K0L", "NM", "SW")
+    defines = ("-DMSM_DYN_SCALAR",) + tuple(f"-DMSM_DYN_{k}={v}" for k, v in zip(names, dims))
+    info = _build("scalar" + "x".join(map(str, dims)), ["glv_digits.cu"], defines)
+    return _load(info), info
 
 
 def check(code: int, name: str) -> None:
@@ -260,10 +283,19 @@ def shape_layout(sid: int) -> tuple[int, int, bool]:
     """(limbs n, register words NW, carry) of a field shape's ID."""
     if sid in FIELD_SHAPES:
         return FIELD_SHAPES[sid]
-    n, nw = divmod(sid - DYN_ID_BASE, 32)
-    if sid < DYN_ID_BASE or not 1 <= n <= MAX_LIMBS:
+    n, nw = divmod((sid - DYN_ID_BASE) % ROW_ID, 32)
+    if sid < DYN_ID_BASE + ROW_ID or not 1 <= n <= MAX_LIMBS:
         raise ValueError(f"no field shape has the ID {sid}")
     return n, nw, False
+
+
+def shape_rows(sid: int) -> int:
+    """The PackedCodec rows that the codec kernels of a shape made on demand
+    take (ceil((bits(p) + 1) / 31) of its fields)."""
+    shape_layout(sid)
+    if sid in FIELD_SHAPES:
+        raise ValueError(f"the main library's shape {sid} has the codec table of csrc/codec.cuh")
+    return (sid - DYN_ID_BASE) // ROW_ID
 
 
 @functools.cache
@@ -281,18 +313,8 @@ def field_shape(F) -> int:
             f"w = {F.w}, n = {F.n}, a {F.p.bit_length()}-bit p"
         )
     nw = max((12 * F.n) // 32, -(-(F.p.bit_length() + 3) // 32))  # 8p < 2^(32 NW)
-    return DYN_ID_BASE + 32 * F.n + nw
-
-
-def curve_shape(F) -> int:
-    """field_shape(F) where the curve kernels are built for it (n <= 33); a
-    ValueError that names the limit otherwise."""
-    if F.n > CURVE_MAX_LIMBS:
-        raise ValueError(
-            f"the CUDA curve kernels take fields of up to n = {CURVE_MAX_LIMBS} limbs (BLS12-381's "
-            f"base field; wider shapes would spill their registers); this field has n = {F.n}"
-        )
-    return field_shape(F)
+    rows = -(-(F.p.bit_length() + 1) // 31)  # PackedCodec(p).rows
+    return DYN_ID_BASE + ROW_ID * rows + 32 * F.n + nw
 
 
 @functools.cache
@@ -319,17 +341,24 @@ def field_words(F, curve_mont: tuple[int, int] = (0, 0), small: int = 0) -> ctyp
 def codec_arg(F, codec) -> int:
     """The codec id the C entry points take for ``codec`` on the field F,
     once its row count is checked against the rows of the kernels' codec
-    table (``csrc/codec.cuh``, read through ``msm_codec_rows``); other pairs
-    are refused with the table's entries."""
+    table (``csrc/codec.cuh``, read through ``msm_codec_rows``: the main
+    library's entries, and a shape made on demand's own, PackedCodec on any
+    p and Fma51Codec where p < 2^255 - 2^206); other pairs are refused with
+    the table's entries."""
     from .fields.codec import CODEC_IDS, codec_id
 
     cid = codec_id(codec)
-    lib, _ = library()
     sid = field_shape(F)
-    if sid >= DYN_ID_BASE or lib.msm_codec_rows(sid, cid) != codec.rows:
-        built = [f"{name} ({lib.msm_codec_rows(sid, i)} rows) on {_shape_name(sid)}"
-                 for sid in FIELD_SHAPES for name, i in CODEC_IDS.items()
-                 if lib.msm_codec_rows(sid, i) > 0]
+    lib, _ = library(sid)
+    if lib.msm_codec_rows(sid, cid) != codec.rows:
+        main, _ = library()
+        built = [f"{name} ({main.msm_codec_rows(s, i)} rows) on {_shape_name(s)}"
+                 for s in FIELD_SHAPES for name, i in CODEC_IDS.items()
+                 if main.msm_codec_rows(s, i) > 0]
+        if sid >= DYN_ID_BASE:
+            built += [f"{name} ({lib.msm_codec_rows(sid, i)} rows) on this field's shape made on "
+                      f"demand (n = {F.n})" for name, i in CODEC_IDS.items()
+                      if lib.msm_codec_rows(sid, i) > 0]
         raise ValueError(
             f"no CUDA kernel for {type(codec).__name__} ({codec.rows} rows) on a field of "
             f"w = {F.w}, n = {F.n}: the kernels take {'; '.join(built)}"

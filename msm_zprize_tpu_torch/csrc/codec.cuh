@@ -119,8 +119,14 @@ struct RowStore {
 // Each entry: a field shape, a codec id and the row layout of that codec on
 // that field. K13 (montmul.cu) is built for every entry, K14 (the curve
 // units, curve.cuh) for every entry of a Weierstrass field (Fp32, Fp33,
-// Fp22c); msm_codec_rows reads the rows from here. A library built for a
-// shape made on demand (field.cuh's DynShape) has no entry.
+// Fp22c) and of a shape made on demand; msm_codec_rows reads the rows from
+// here. A library built for a shape made on demand (field.cuh's DynShape)
+// has that shape's entries: PackedCodec in MSM_DYN_ROWS rows (_build.py
+// passes ceil((bits(p) + 1) / 31), a part of the shape's ID: 15 for BN462's
+// 462-bit field, 25 for a 751-bit one), and Fma51Codec where those rows
+// hold at most 279 bits (a p below 2^255 - 2^206 needs at most 9 of them;
+// goldilocks and babybear take it: their words, 3 and 2, keep the low 96
+// and 64 bits of the 256 that the pair rows hold, and store 0 above).
 
 template <class S_, int ID, class C_>
 struct CodecEntry {
@@ -130,7 +136,12 @@ struct CodecEntry {
 };
 
 #ifdef MSM_DYN_SHAPE
-using CodecTable = std::tuple<>;  // a shape made on demand has limb storage only
+using DynPacked = CodecEntry<DynShape, CODEC_PACKED31, Packed31<MSM_DYN_ROWS>>;
+#if MSM_DYN_ROWS <= 9
+using CodecTable = std::tuple<DynPacked, CodecEntry<DynShape, CODEC_FMA51, Fma51Rows>>;
+#else
+using CodecTable = std::tuple<DynPacked>;
+#endif
 #else
 using CodecTable = std::tuple<CodecEntry<Fp32, CODEC_PACKED31, Packed31<13>>,
                               CodecEntry<Fp22, CODEC_PACKED31, Packed31<9>>,

@@ -2,8 +2,9 @@
 // (32, W) 12-bit limb tensors. The formulas, the kernels and the bounds
 // argument are in curve.cuh; this unit instantiates them for
 // LimbStore<Fp32>, and holds the one C entry of every curve unit. Built with
-// -DMSM_DYN_SHAPE (_build.py, a shape made on demand), it instantiates them
-// for LimbStore<DynShape> alone.
+// -DMSM_DYN_SHAPE (_build.py, a shape made on demand, n = 1..63), it
+// instantiates them for LimbStore<DynShape>, and its table names the two
+// codec units of that library (curve_codec.cu, curve_pallas_codec.cu).
 #include "curve.cuh"
 
 namespace msm {
@@ -16,13 +17,18 @@ struct CurveUnitEntry {
 };
 
 #ifdef MSM_DYN_SHAPE
-// A library built for one shape made on demand (field.cuh's DynShape, n <=
-// 33): this unit alone, on limbs.
+// A library built for one shape made on demand (field.cuh's DynShape): this
+// unit on limbs, and the shape's codec storages (codec.cuh's table).
 int limbs_dyn(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W, int arg,
               int group, const uint32_t* consts, cudaStream_t s) {
   return launch_curve<LimbStore<DynShape>>(kernel, ptrs, lds, W, arg, group, consts, s);
 }
-constexpr CurveUnitEntry CURVE_UNITS[] = {{DynShape::ID, 0, limbs_dyn}};
+constexpr CurveUnitEntry CURVE_UNITS[] = {
+    {DynShape::ID, 0, limbs_dyn}, {DynShape::ID, CODEC_PACKED31, packed_dyn},
+#if MSM_DYN_ROWS <= 9
+    {DynShape::ID, CODEC_FMA51, fma51_dyn},
+#endif
+};
 #else
 int limbs_fp32(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W, int arg,
                int group, const uint32_t* consts, cudaStream_t s) {

@@ -14,6 +14,11 @@
 //   curve_pallas_codec.cu RowStore<Fp22c, P31<9>>, RowStore<Fp22c, Fma51Rows>
 //                                                   Pallas packed and fma51
 // and curve.cu's msm_curve entry dispatches on (shape ID, codec id) to them.
+// A library of a shape made on demand (-DMSM_DYN_SHAPE) builds the same
+// three files for DynShape instead: LimbStore<DynShape> (curve.cu),
+// RowStore<DynShape, P31<MSM_DYN_ROWS>> (curve_codec.cu) and, where the
+// table of codec.cuh has it, RowStore<DynShape, Fma51Rows>
+// (curve_pallas_codec.cu).
 //
 // Replace the formula bodies of msm_zprize_tpu/curves/pallas_curve.py's one
 // curve pallas_call (_curve_call):
@@ -545,6 +550,17 @@ proj_add_mixed_kernel(const __grid_constant__ Operands ops, int64_t W,
 // The kernel ids of msm_curve (curves/cuda_curve.py::KERNEL_IDS).
 constexpr int CURVE_K3 = 3, CURVE_K4 = 4, CURVE_K5 = 5, CURVE_K6 = 6, CURVE_K7 = 7;
 
+// G of K3, K4/K4m and K7 on a shape made on demand: 2 (12 words' pick at the
+// widest widths) where a block's 12 slots at G = 2 (64 points) fit the 48 KB
+// of static shared memory a block may take, that is up to 15 words (BN462's
+// base field, n = 39); above, up to 24 words (n = 63), G = 3 (40 points,
+// 47,232 bytes at 24 words). K5's 15 slots at G = 4 fit up to 24 words
+// (47,520 bytes), as do K11's 14 and K12's 10 (edwards.cu).
+template <class S>
+constexpr int dyn_group() {
+  return 12 * S::NW * Group<2>::STRIDE * 4 <= 48 * 1024 ? 2 : 3;
+}
+
 // G, the threads a point, that K3, K4/K4m (masked), K5 and K7 launch with
 // at width W on field shape S, on limbs or (rows) a row codec's storage (G =
 // 1: the one-thread aff_pair_add_kernel, proj_add_kernel or
@@ -577,11 +593,11 @@ constexpr int CURVE_K3 = 3, CURVE_K4 = 4, CURVE_K5 = 5, CURVE_K6 = 6, CURVE_K7 =
 // words (G = 2 22 % behind); the step at 12,288 is K4's, as no K7 path runs
 // between. G = 3 won no K7 width.
 // A shape made on demand (field.cuh's DynShape) has no measurements: every
-// kernel takes one instance there, G = 2 (12 words' pick at the widest
-// widths of K3, K4/K4m and K7) and K5's G = 4.
+// kernel takes one instance there, K5's G = 4 and dyn_group's G (above) for
+// K3, K4/K4m and K7.
 template <class S>
 int curve_group(int kernel, int64_t W, bool masked, bool rows) {
-  if constexpr (S::DYN) return kernel == CURVE_K5 || kernel == CURVE_K6 ? 4 : 2;
+  if constexpr (S::DYN) return kernel == CURVE_K5 || kernel == CURVE_K6 ? 4 : dyn_group<S>();
   if (kernel == CURVE_K3) {
     if (W <= 6144) return 6;
     if (S::NW == 8) return W <= (rows ? 24576 : 32768) ? 3 : 1;
@@ -598,27 +614,28 @@ int curve_group(int kernel, int64_t W, bool masked, bool rows) {
 
 // The instances built on shape S (on limbs, or rows), by G: exactly those
 // curve_group picks (the one-thread K3, K4 and K7
-// on 8-word shapes, and K3 on BLS12-377's rows; G = 2 alone, and K5's 4, on
-// a shape made on demand).
-using DynGroups = std::integer_sequence<int, 2>;
+// on 8-word shapes, and K3 on BLS12-377's rows; dyn_group's G alone, and
+// K5's 4, on a shape made on demand).
+template <class S>
+using DynGroups = std::integer_sequence<int, dyn_group<S>()>;
 template <class S, bool ROWS>
 using K3Groups = std::conditional_t<
-    S::DYN, DynGroups,
+    S::DYN, DynGroups<S>,
     std::conditional_t<
         S::NW == 8, std::integer_sequence<int, 1, 3, 6>,
         std::conditional_t<ROWS && S::ID == Fp32::ID, std::integer_sequence<int, 1, 2, 3, 6>,
                            std::integer_sequence<int, 2, 3, 6>>>>;
 template <class S>
 using K4Groups = std::conditional_t<
-    S::DYN, DynGroups,
+    S::DYN, DynGroups<S>,
     std::conditional_t<S::NW == 8, std::integer_sequence<int, 1, 2, 6>,
                        std::integer_sequence<int, 2, 6>>>;
 template <class S>
-using K4mGroups = std::conditional_t<S::DYN, DynGroups, std::integer_sequence<int, 2, 6>>;
+using K4mGroups = std::conditional_t<S::DYN, DynGroups<S>, std::integer_sequence<int, 2, 6>>;
 using K5Groups = std::integer_sequence<int, 4>;
 template <class S>
 using K7Groups = std::conditional_t<
-    S::DYN, DynGroups,
+    S::DYN, DynGroups<S>,
     std::conditional_t<S::NW == 8, std::integer_sequence<int, 1, 6>,
                        std::integer_sequence<int, 2, 6>>>;
 
@@ -736,7 +753,7 @@ int launch_curve(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W
 using CurveUnit = int(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W, int arg,
                       int group, const uint32_t* consts, cudaStream_t s);
 CurveUnit limbs_fp32, packed_fp32, limbs_fp33, packed_fp33, limbs_fp22c, packed_fp22c,
-    fma51_fp22c;
+    fma51_fp22c, packed_dyn, fma51_dyn;
 
 }  // namespace wei
 }  // namespace msm

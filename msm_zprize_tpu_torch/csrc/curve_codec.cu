@@ -12,9 +12,19 @@
 // words per coordinate (K3: 912 -> 380 bytes per lane), so the operation
 // bound is unchanged and the byte bound falls ~2.5x. The loads are what
 // these kernels wait on (curve.cuh), so the time falls with the bytes.
+// Built with -DMSM_DYN_SHAPE, the same kernels on PackedCodec rows of the
+// shape made on demand (MSM_DYN_ROWS rows: 15 on BN462's base field).
 #include "curve.cuh"
 
+#ifdef MSM_DYN_SHAPE
+int msm::wei::packed_dyn(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W,
+                         int arg, int group, const uint32_t* consts, cudaStream_t s) {
+  return launch_curve<RowStore<DynShape, Packed31<MSM_DYN_ROWS>>>(kernel, ptrs, lds, W, arg,
+                                                                  group, consts, s);
+}
+#else
 int msm::wei::packed_fp32(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W,
                           int arg, int group, const uint32_t* consts, cudaStream_t s) {
   return launch_curve<RowStore<Fp32, Packed31<13>>>(kernel, ptrs, lds, W, arg, group, consts, s);
 }
+#endif

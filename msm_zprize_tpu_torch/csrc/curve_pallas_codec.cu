@@ -11,8 +11,19 @@
 // words), each store scatters them back, and pass-through lanes (K4m mask
 // 0, K7 inf2 set) copy the rows bit for bit. A lane moves 10 (9) words a
 // coordinate against the 22 of limb storage.
+// Built with -DMSM_DYN_SHAPE, the same kernels on Fma51Codec rows of the
+// shape made on demand, where codec.cuh's table has them (a field whose
+// PackedCodec needs at most 9 rows), and nothing else.
 #include "curve.cuh"
 
+#ifdef MSM_DYN_SHAPE
+#if MSM_DYN_ROWS <= 9
+int msm::wei::fma51_dyn(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W,
+                        int arg, int group, const uint32_t* consts, cudaStream_t s) {
+  return launch_curve<RowStore<DynShape, Fma51Rows>>(kernel, ptrs, lds, W, arg, group, consts, s);
+}
+#endif
+#else
 int msm::wei::packed_fp22c(int kernel, const uint64_t* ptrs, const int64_t* lds, int64_t W,
                            int arg, int group, const uint32_t* consts, cudaStream_t s) {
   return launch_curve<RowStore<Fp22c, Packed31<9>>>(kernel, ptrs, lds, W, arg, group, consts, s);
@@ -22,3 +33,4 @@ int msm::wei::fma51_fp22c(int kernel, const uint64_t* ptrs, const int64_t* lds, 
                           int arg, int group, const uint32_t* consts, cudaStream_t s) {
   return launch_curve<RowStore<Fp22c, Fma51Rows>>(kernel, ptrs, lds, W, arg, group, consts, s);
 }
+#endif

@@ -52,8 +52,10 @@ namespace msm {
 namespace ed {
 
 // ed-on-bls12-377's base field (n = 22, R = 2^264) is the one Edwards field
-// of the main library; a library built for a shape made on demand (n <= 33)
-// takes that shape.
+// of the main library; a library built for a shape made on demand (n = 1..63:
+// ed25519's field, n = 22 in 9 words, among them) takes that shape. K11's 14
+// slots and K12's 10 at G = 4 fit the 48 KB of static shared memory up to 24
+// words.
 #ifdef MSM_DYN_SHAPE
 using S = DynShape;
 #else

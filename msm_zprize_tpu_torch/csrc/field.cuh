@@ -33,7 +33,8 @@
 // Every other field that the limb code takes (n = ceil((bits(p) + 5) / 12)
 // limbs, n = 1..63, so R > 32p) gets a shape made on demand, DynShape, built
 // into a library of its own (_build.field_shape, _build.library): ID =
-// DYN_ID_BASE + 32 NL + NW, TAIL = 12 NL mod 32, RW = 12 NL div 32 (0 for
+// DYN_ID_BASE + 2048 ROWS + 32 NL + NW (ROWS: the rows of p's PackedCodec,
+// codec.cuh), TAIL = 12 NL mod 32, RW = 12 NL div 32 (0 for
 // n <= 2), and NW the fewest words with 8p < 2^(32 NW), at least RW. Since
 // R > 32p, 8p < 2^(32 RW + TAIL - 2), so NW is RW or RW + 1: a value may
 // need one word more than the full rounds reduce (secp256k1: n = 22, R =
@@ -116,8 +117,8 @@ using Fp33 = Shape<3, 33, 12, 12>;
 using Fp22c = Shape<4, 22, 8, 8, true>;
 #ifdef MSM_DYN_SHAPE
 // A library built for one shape made on demand (_build.py passes
-// -DMSM_DYN_SHAPE and its -DMSM_DYN_ID, _NL, _NW, _TAIL): its entries take
-// that shape alone.
+// -DMSM_DYN_SHAPE and its -DMSM_DYN_ID, _NL, _NW, _TAIL, _ROWS): its entries
+// take that shape alone.
 using DynShape = Shape<MSM_DYN_ID, MSM_DYN_NL, MSM_DYN_NW, MSM_DYN_TAIL>;
 static_assert(DynShape::DYN, "a shape made on demand takes an ID from DYN_ID_BASE up");
 using ShapeTable = std::tuple<DynShape>;

@@ -4,7 +4,9 @@
 // K2 replaces msm_zprize_tpu/fields/pallas_scalar.py::glv_digits_pallas (body
 // _scalar_kernel). Per scalar lane s (22 canonical 12-bit limbs of the
 // scalar field; BLS12-377's, BLS12-381's and Pallas's GlvScalar modules all
-// have the sizes below, and their constants come at run time):
+// have the sizes below, and their constants come at run time; any other w =
+// 12 GlvScalar, such as BN462's, takes a library built for its sizes, in
+// which the same code runs on the word counts they give):
 //   u_i = floor(s * m_i / 2^(12*K0))  mod 2^(12*(n_half+1))     (i = 0, 1)
 //   s0  = s - (x0*v00 + x1*v10),  s1 = -(x0*v01 + x1*v11)   mod 2^(12*n_acc)
 //   (sign_i, |s_i|) from the two's-complement top bit, |s_i| mod 2^(12*n_half)
@@ -63,7 +65,22 @@ namespace msm {
 constexpr int MAX_C = 30;
 
 // The limb sizes of the Python GlvScalar this kernel is built for (the entry
-// refuses others).
+// refuses others), and the words of s.
+#ifdef MSM_DYN_SCALAR
+// A library built for one scalar module made on demand (_build.scalar_library
+// passes its limb sizes and the words of s, a macro each, as it does a field
+// shape's): any w = 12 GlvScalar, BN462's q (NS = 39, NH = 20, NACC = 22,
+// K0L = 40, NM = 21, SW = 15; MW = 8, VW = 8, AW = 9) among them.
+constexpr int NS = MSM_DYN_NS;
+constexpr int NH = MSM_DYN_NH;
+constexpr int NACC = MSM_DYN_NACC;
+constexpr int K0L = MSM_DYN_K0L;
+constexpr int NM = MSM_DYN_NM;
+constexpr int SW = MSM_DYN_SW;                    // words of s: ceil(bits(q) / 32)
+constexpr int MW = (LIMB_BITS * NM + 31) / 32;    // words of m_i
+constexpr int VW = (LIMB_BITS * NH + 31) / 32;    // words of v_ij
+constexpr int AW = (LIMB_BITS * NACC + 31) / 32;  // words of u_i and of the accumulators
+#else
 constexpr int NS = 22;    // scalar limbs (bits(q) = 253 or 255)
 constexpr int NH = 11;    // limbs of |s_i|
 constexpr int NACC = 13;  // two's-complement accumulator limbs
@@ -74,15 +91,27 @@ constexpr int SW = 8;                          // words of s
 constexpr int MW = 5;                          // words of m_i
 constexpr int VW = 5;                          // words of v_ij
 constexpr int AW = 5;                          // words of u_i and of the accumulators
-constexpr int SHIFT_W = LIMB_BITS * K0L / 32;  // 8
-constexpr int SHIFT_B = LIMB_BITS * K0L % 32;  // 20
-constexpr uint32_t U_TOP = (1u << (LIMB_BITS * (NH + 1) - 32 * (AW - 1))) - 1;  // u mod 2^144
-constexpr int SIGN_BIT = LIMB_BITS * NACC - 1 - 32 * (AW - 1);                    // bit 155
-constexpr uint32_t MAG_TOP = (1u << (LIMB_BITS * NH - 32 * (AW - 1))) - 1;      // |s_i| mod 2^132
-static_assert(32 * MW >= LIMB_BITS * NM &&
-              32 * VW >= LIMB_BITS * NH && 32 * AW >= LIMB_BITS * NACC &&
-              SHIFT_W + AW == SW + MW && SIGN_BIT > 0 && SIGN_BIT < 32,
-              "the word sizes must hold the limb sizes");
+#endif
+constexpr int SHIFT_W = LIMB_BITS * K0L / 32;     // 8 (BN462: 15)
+constexpr int SHIFT_B = LIMB_BITS * K0L % 32;     // 20 (BN462: 0, a whole-word shift)
+constexpr int U_BITS = LIMB_BITS * (NH + 1);      // u mod 2^144
+constexpr int SIGN_BIT = LIMB_BITS * NACC - 1 - 32 * (AW - 1);  // bit 155 of the accumulator
+constexpr int MAG_BITS = LIMB_BITS * NH;          // |s_i| mod 2^132
+static_assert(MW == (LIMB_BITS * NM + 31) / 32 && VW == (LIMB_BITS * NH + 31) / 32 &&
+              AW == (LIMB_BITS * NACC + 31) / 32 && 32 * AW >= U_BITS &&
+              SHIFT_W < SW + MW && AW <= SW && SIGN_BIT > 0 && SIGN_BIT < 32,
+              "the word sizes must be the fewest that hold the limb sizes");
+
+// a mod 2^BITS in place: words wholly at or above bit BITS cleared, the word
+// that BITS cuts masked (on the sizes above, the top word alone).
+template <int BITS, int N>
+__device__ __forceinline__ void keep_bits(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (32 * (k + 1) <= BITS) continue;
+    a[k] = 32 * k >= BITS ? 0u : a[k] & ((1u << (BITS - 32 * k)) - 1);
+  }
+}
 
 struct GlvConsts {
   int32_t dims[5];     // n, n_half, n_acc, K0_limbs, n_m as the Python side has them
@@ -107,7 +136,8 @@ __device__ __forceinline__ void load_scalar(uint32_t (&w)[SW], const int32_t* __
 }
 
 // u = floor(s * m / 2^(12*K0L)) mod 2^144: the full product (the low words
-// give the carries), then words SHIFT_W.. shifted right by SHIFT_B bits.
+// give the carries), then words SHIFT_W.. shifted right by SHIFT_B bits (the
+// words past the product's are 0).
 __device__ __forceinline__ void mul_shift(uint32_t (&u)[AW], const uint32_t (&s)[SW],
                                           const uint32_t (&m)[MW]) {
   uint32_t p[SW + MW];
@@ -127,9 +157,14 @@ __device__ __forceinline__ void mul_shift(uint32_t (&u)[AW], const uint32_t (&s)
 #pragma unroll
   for (int k = 0; k < AW; ++k) {
     const int w = SHIFT_W + k;
-    u[k] = (p[w] >> SHIFT_B) | (w + 1 < SW + MW ? p[w + 1] << (32 - SHIFT_B) : 0u);
+    const uint32_t lo = w < SW + MW ? p[w] : 0u;
+    if constexpr (SHIFT_B == 0) {
+      u[k] = lo;
+    } else {
+      u[k] = (lo >> SHIFT_B) | (w + 1 < SW + MW ? p[w + 1] << (32 - SHIFT_B) : 0u);
+    }
   }
-  u[AW - 1] &= U_TOP;
+  keep_bits<U_BITS>(u);
 }
 
 // acc = acc - t (sub) or acc + t, modulo 2^(32 AW); t = u * v mod 2^(32 AW).
@@ -159,8 +194,8 @@ __device__ __forceinline__ void mul_acc(uint32_t (&acc)[AW], const uint32_t (&u)
   }
 }
 
-// The sign (bit 155) of a two's-complement accumulator, and its magnitude's
-// low 132 bits in place.
+// The sign (bit SIGN_BIT of the top word: bit 155) of a two's-complement
+// accumulator, and its magnitude's low MAG_BITS (132) bits in place.
 __device__ __forceinline__ uint32_t sign_abs(uint32_t (&a)[AW]) {
   const uint32_t top = (a[AW - 1] >> SIGN_BIT) & 1u;
   uint64_t c = top;
@@ -170,7 +205,7 @@ __device__ __forceinline__ uint32_t sign_abs(uint32_t (&a)[AW]) {
     a[k] = static_cast<uint32_t>(c);
     c >>= 32;
   }
-  a[AW - 1] &= MAG_TOP;
+  keep_bits<MAG_BITS>(a);
   return top;
 }
 

@@ -27,10 +27,11 @@ operands are ``(codec.rows, *batch)`` rows and the wrappers launch the same
 formulas on that storage (counted under the ``k14_*`` keys on
 ``PackedCodec``, ``k14_fma51_*`` on ``Fma51Codec``). The kernels are built
 for BLS12-377 (limbs and 13 packed rows), BLS12-381 (the same) and Pallas
-(limbs, 9 packed rows, 10 Fma51 pair rows), and on limbs for every field of
-up to 33 limbs through a shape made on demand (``_build.curve_shape``; wider
-fields raise a ``ValueError`` naming the limit); the wrappers name the
-field's shape and the codec, and the C entry refuses any other pair. The twins decode the rows to digit planes, run the formulas
+(limbs, 9 packed rows, 10 Fma51 pair rows), and for every other field the
+limb code takes (n = 1..63) through a shape made on demand: on limbs, on
+its PackedCodec rows and, where p < 2^255 - 2^206, on Fma51Codec rows
+(``_build.field_shape``); the wrappers name the field's shape and the
+codec, and the C entry refuses any other pair. The twins decode the rows to digit planes, run the formulas
 and encode the result; the pass-through lanes keep the caller's rows bit
 for bit.
 """
@@ -293,7 +294,7 @@ def launch(F, words, name, entry, ins, lds, width, batch, n_out, extra=(), n=Non
     device = ins[0].device
     outs = [torch.empty((n, width), dtype=torch.int32, device=device) for _ in range(n_out)]
     if width:
-        shape = _build.curve_shape(F)
+        shape = _build.field_shape(F)
         lib, _ = _build.library(shape)
         code = getattr(lib, entry)(
             _build.ptrs(*ins, *outs), _build.ints(lds + [width] * n_out), width,
@@ -414,7 +415,7 @@ def _group_for(W, name: str, width: int) -> int:
     """G, the threads a point, of the instance that kernel ``name`` (K3,
     K4, K4m, K5, K7) launches with at ``width`` lanes on W's field and storage:
     the kernels' own table (csrc/curve.cuh::curve_group)."""
-    shape = _build.curve_shape(W.F)
+    shape = _build.field_shape(W.F)
     lib, _ = _build.library(shape)
     return lib.msm_curve_group(shape, W.storage.codec_arg(W.F),
                                KERNEL_IDS[name], width, int(name == K4M))
@@ -424,7 +425,7 @@ def _groups(W, name: str) -> tuple[int, ...]:
     """The Gs of the instances of kernel ``name`` (K3, K4, K4m, K5, K7)
     built on W's field and storage, as the kernels' library lists them
     (csrc/curve.cuh::K3Groups, K4Groups, K4mGroups, K5Groups, K7Groups)."""
-    shape, out = _build.curve_shape(W.F), (ctypes.c_int * 8)()
+    shape, out = _build.field_shape(W.F), (ctypes.c_int * 8)()
     lib, _ = _build.library(shape)
     count = lib.msm_curve_groups(shape, W.storage.codec_arg(W.F), KERNEL_IDS[name],
                                  int(name == K4M), out, 8)

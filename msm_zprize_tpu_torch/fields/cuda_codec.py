@@ -4,8 +4,9 @@
 K13 replaces ``msm_zprize_tpu/fields/fma51_pallas.py::montmul51_pallas``. On
 the codec modes' paths it computes beta * x for the GLV endomorphism over
 all N points: on ``PackedCodec`` rows (13 on BLS12-377 and BLS12-381, 9 on
-Pallas) in ``mode="packed"``, on 10 ``Fma51Codec`` pair rows in Pallas's
-``mode="fma51"``. CUDA tensors launch the
+Pallas, 15 on BN462's 462-bit field, any p through the library of its
+shape made on demand) in ``mode="packed"``, on 10 ``Fma51Codec`` pair rows
+in Pallas's ``mode="fma51"`` (any p < 2^255 - 2^206). CUDA tensors launch the
 kernel; CPU tensors run ``montmul_rows_plain``: decode to digit planes,
 ``MontgomeryFp.montmul_plain`` (the twin of K1), encode. Both give the same
 integer, x*y*R^-1 mod p below 2p with R = 2^(12 n), in the codec's rows.
@@ -44,10 +45,10 @@ def montmul_rows(F, codec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty((rows, W), dtype=torch.int32, device=x.device)
     if W == 0:
         return out
-    lib, _ = _build.library()
+    shape = _build.field_shape(F)
+    lib, _ = _build.library(shape)
     code = lib.msm_montmul_rows(
-        _build.ptrs(x, y, out), _build.ints(lds), W, _build.field_shape(F), cid, words,
-        _build.stream_of(x),
+        _build.ptrs(x, y, out), _build.ints(lds), W, shape, cid, words, _build.stream_of(x),
     )
     name = K13_FMA51 if cid == CODEC_IDS["Fma51Codec"] else K13
     _build.check(code, name)

@@ -7,7 +7,11 @@ tensors launch the kernels; CPU tensors run the plain twins
 ``glv_digits_plain`` (``GlvScalar.decompose`` + ``signed_digits``, then
 glv_prep's infinity mask) and ``signed_digits``. Kernel and twin return
 bit-identical digit planes. K2 computes on 32-bit words what the twin
-computes on 12-bit limbs; ``_const_words`` packs its constants.
+computes on 12-bit limbs; ``_const_words`` packs its constants. The main
+library's K2 takes the modules of BLS12-377, BLS12-381 and Pallas (their
+sizes, ``_build.GLV_MAIN_DIMS``); any other w = 12 ``GlvScalar`` (BN462's
+462-bit q among them) launches K2 from a library built for its sizes
+(``_build.scalar_library``). K9 takes any limb count n at run time.
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ __all__ = ["MAX_C", "glv_digits", "glv_digits_plain", "simple_digits"]
 
 KERNEL = "k2_glv_digits"
 K9 = "k9_simple_digits"
-MW = VW = 5  # 32-bit words of m_i and of |v_ij| in GlvConsts (csrc/glv_digits.cu)
 # The widest window c (csrc/glv_digits.cu::MAX_C): signed_digits, here and in
 # the JAX package, holds window + carry <= 2^c and 2^c in int32.
 MAX_C = 30
@@ -54,21 +57,35 @@ def _words(limbs, w: int, count: int) -> list[int]:
     return [(value >> (32 * i)) & 0xFFFFFFFF for i in range(count)]
 
 
+def _dims(S: GlvScalar) -> tuple:
+    """The sizes K2 is built for (``_build.GLV_MAIN_DIMS``' order): n, n_half,
+    n_acc, K0 limbs, limbs of m_i, and the 32-bit words of a scalar."""
+    return (S.n, S.n_half, S.n_acc, S.K0_limbs, len(S.m0), -(-S.q.bit_length() // 32))
+
+
+def _library(S: GlvScalar):
+    """The kernel library whose K2 takes S: the main one, or S's own."""
+    dims = _dims(S)
+    return _build.library() if dims == _build.GLV_MAIN_DIMS else _build.scalar_library(dims)
+
+
 def _const_words(S: GlvScalar) -> list[int]:
     """GlvConsts (csrc/glv_digits.cu) as 32-bit words: the limb sizes, the
     four terms' signs, m0 and m1 in MW words each, then |v| of the terms
-    a-d in VW words each."""
+    a-d in VW words each (MW, VW: the fewest words that hold the limbs of
+    m_i and of |s_i|; 5 and 5 on the main library's modules)."""
     if S.w != 12 or len(S.m0) != len(S.m1):
         raise ValueError("the K2 kernel supports 12-bit limbs only")
+    mw, vw = -(-S.w * len(S.m0) // 32), -(-S.w * S.n_half // 32)
     words = [S.n, S.n_half, S.n_acc, S.K0_limbs, len(S.m0)]
     terms = S.terms()
     words += [sg & 0xFFFFFFFF for _, sg, _ in terms]
-    words += _words(S.m0, S.w, MW) + _words(S.m1, S.w, MW)
+    words += _words(S.m0, S.w, mw) + _words(S.m1, S.w, mw)
     for _, _, name in terms:
         v = S.sv[name][1]
         if len(v) > S.n_half:
             raise ValueError(f"basis row {name} wider than n_half limbs")
-        words += _words(v, S.w, VW)
+        words += _words(v, S.w, vw)
     return words
 
 
@@ -77,7 +94,7 @@ def _consts(S: GlvScalar) -> ctypes.Array:
     """``_const_words`` for the C entry, packed once per module; the
     compiled kernel must take as many words (its sizes are the module's)."""
     words = _const_words(S)
-    lib, _ = _build.library()
+    lib, _ = _library(S)
     if len(words) != lib.msm_glv_const_words():
         raise ValueError(
             "scalar module sizes differ from the compiled K2 kernel "
@@ -105,7 +122,7 @@ def glv_digits(S: GlvScalar, scalars: torch.Tensor, c: int, K: int, inf=None):
     signs = torch.empty_like(mags)
     if N == 0:
         return mags, signs
-    lib, _ = _build.library()
+    lib, _ = _library(S)
     ptrs = (ctypes.c_uint64 * 4)(*_build.ptrs(scalars, mags, signs),
                                  0 if inf is None else inf.data_ptr())
     code = lib.msm_glv_digits(ptrs, _build.ints(lds), N, c, K, words, _build.stream_of(scalars))

@@ -3,7 +3,9 @@
     python3 -m msm_zprize_tpu_torch.profile_msm [--curve CURVE] [--log-n 16] [--path PATH]
 
 CURVE is ``ed-on-bls12-377`` (the default), ``bls12-377``, ``bls12-381`` or
-``pallas``. PATH is the curve's default MSM mode (``projective`` or
+``pallas``, or a curve of the wide-field tests (``testing/wide_curves.py``):
+``bn462`` (n = 39 limbs, a shape and a scalar module made on demand) or
+``ed25519`` (the 9-word shape made on demand). PATH is the curve's default MSM mode (``projective`` or
 ``padded``, the default), another mode (Weierstrass ``affine``, ``unsafe``,
 ``halving``, ``packed`` (PackedCodec row storage), ``fma51`` (Pallas on
 Fma51Codec pair rows); Edwards ``basic``), ``msm_projective`` (Weierstrass,
@@ -55,15 +57,19 @@ from .curves.weierstrass import ProjectivePoints
 from .msm.common import window_size
 from .parallel.api import TwistedEdwards, Weierstrass
 from .testing import bounds
+from .testing.wide_curves import BN462, ED25519
 from .utils import phases
 
 __all__ = ["main"]
+
+WEIERSTRASS = {**WEIERSTRASS_CURVES, BN462.label: BN462}
+EDWARDS = {ED_ON_BLS12_377.label: ED_ON_BLS12_377, ED25519.label: ED25519}
 
 
 def _stages(label, cv, scalars, points, log_n):
     """CUDA-event stage times of one MSM (``utils/phases.py::stage_times``):
     prep, accumulation (prep included), reduction, Horner."""
-    c = window_size("batched-affine" if label in WEIERSTRASS_CURVES else "edwards", log_n)
+    c = window_size("batched-affine" if label in WEIERSTRASS else "edwards", log_n)
     return phases.stage_times(cv, scalars, points, c)
 
 
@@ -104,8 +110,7 @@ def _curve_table(head, kernels, launches, runs) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--curve", default="ed-on-bls12-377",
-                    choices=["ed-on-bls12-377", *WEIERSTRASS_CURVES])
+    ap.add_argument("--curve", default="ed-on-bls12-377", choices=[*EDWARDS, *WEIERSTRASS])
     ap.add_argument("--log-n", type=int, default=16)
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--path", default=None, choices=[
@@ -118,13 +123,13 @@ def main(argv=None) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     N = 1 << args.log_n
-    if args.curve in WEIERSTRASS_CURVES:
-        cv = Weierstrass.create(WEIERSTRASS_CURVES[args.curve])
+    if args.curve in WEIERSTRASS:
+        cv = Weierstrass.create(WEIERSTRASS[args.curve])
     else:
-        cv = TwistedEdwards.create(ED_ON_BLS12_377)
+        cv = TwistedEdwards.create(EDWARDS[args.curve])
     points = cv.random_points_fast(N, seed=args.seed, device=dev)  # made on the card: any N
     batches = [cv.random_scalars(N, seed=args.seed + 1 + i, device=dev) for i in range(25)]
-    default = "projective" if args.curve in WEIERSTRASS_CURVES else "padded"
+    default = "projective" if args.curve in WEIERSTRASS else "padded"
     path = args.path or default
     if path == "unsafe":
         run = lambda s: cv.msm_unsafe(s, points, mode="affine")
@@ -191,7 +196,7 @@ def main(argv=None) -> None:
     print(f"[stages] {head}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in walls.items())
           + " (each synchronised, CUDA events, median of 10)")
     chains = {k: sorted(v) for k, v in by_name.items()
-              if "exp_warp_kernel" in k or "double_k" in k}
+              if "exp_warp_kernel" in k or "exp_thread_kernel" in k or "double_k" in k}
     print(f"[serial] {head}: one-launch device times of the chained kernels (ms): "
           + "; ".join(f"{k} min {v[0] / 1e3:.4f} median {statistics.median(v) / 1e3:.4f} "
                       f"max {v[-1] / 1e3:.4f}" for k, v in sorted(chains.items())))

@@ -66,12 +66,18 @@ def curve_work(kernel: str, rows: int, mm: int, width: int, arg: int = 0,
     return (words + flags) * 4 * width, products * mm * lanes
 
 
-def glv_digits_work(N: int, n: int, K: int) -> tuple[int, int]:
+def glv_digits_work(N: int, n: int, K: int, words=(8, 5, 5, 5)) -> tuple[int, int]:
     """(bytes, multiply-adds) of one K2 launch over N scalars of n limbs
     into K windows, as glv_prep runs it: the limbs and the 2N infinity flags
     read, the two (K, 2N) planes written; the multiply-adds of its word
-    design (``csrc/glv_digits.cu``): two full 8 x 5-word products (each
-    32x32->64 product two, low and high half) and four products modulo
-    2^160 (the 15 word products below word 5; the 5 that land in word 4
-    need their low halves only)."""
-    return (n + 2 + 4 * K) * 4 * N, (2 * 2 * 8 * 5 + 4 * (2 * 15 - 5)) * N
+    design (``csrc/glv_digits.cu``) on ``words`` = (SW, MW, VW, AW), the
+    words of s, m_i, |v_ij| and the accumulators (8, 5, 5, 5 on the main
+    library's modules: BLS12-377's, BLS12-381's, Pallas's): two full SW x
+    MW-word products (each 32x32->64 product two, low and high half) and
+    four products of AW x VW words modulo 2^(32 AW) (on 5 words, the 15 word
+    products below word 5; the 5 that land in word 4 need their low halves
+    only)."""
+    sw, mw, vw, aw = words
+    below = sum(1 for i in range(aw) for j in range(vw) if i + j < aw)
+    top = sum(1 for i in range(aw) for j in range(vw) if i + j == aw - 1)
+    return (n + 2 + 4 * K) * 4 * N, (2 * 2 * sw * mw + 4 * (2 * below - top)) * N

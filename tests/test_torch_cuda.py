@@ -47,8 +47,14 @@ Pallas launch on the same limbs take different shape IDs, and the C
 entries refuse a Pallas field under Fp22's. The fields outside the four
 main shapes (secp256k1, goldilocks, babybear, n = 1, n = 63) take shapes
 made on demand: K1 limb for limb and K8 mod p against the twins, K4 and K5
-with 3b by a product; n = 63 is refused by the curve entries, the limit
-named. The sharded MSM on two rank
+with 3b by a product. The widest: K2 on BN462's scalar module (a library of
+its own) bit for bit and K9 on its 39-limb scalars, at c = 8, 13, 22 and 30,
+W = 1, 1000 and 4099, with and without the mask; K3-K7 and K4m on limbs and
+on PackedCodec rows of n = 39 (BN462's field) and n = 63 and on goldilocks's
+Fma51Codec rows, K13 on those rows, K10-K12 at n = 63, at widths that cut a
+group, a warp and a block, the pass-through lanes bit for bit; BN462's MSM
+at N = 64 in every mode and ed25519's in both against the known logs. The
+sharded MSM on two rank
 processes sharing the card over gloo (``testing/mesh_ranks.card_ranks``):
 every rank's result equals the known logs, and each run launched every
 kernel of its path.
@@ -61,7 +67,6 @@ import pytest
 import torch
 
 from msm_zprize_tpu_torch import _build
-from msm_zprize_tpu_torch.bigint.field import next_prime
 from msm_zprize_tpu_torch.counters import COUNTS
 from msm_zprize_tpu_torch.curves import cuda_curve, cuda_edwards
 from msm_zprize_tpu_torch.curves.example_fields import EXAMPLE_FIELDS
@@ -80,6 +85,7 @@ from msm_zprize_tpu_torch.testing import mesh_ranks
 from msm_zprize_tpu_torch.testing.points import (
     ed_expected_msm, ed_points_with_logs, expected_msm, points_with_logs,
 )
+from msm_zprize_tpu_torch.testing.wide_curves import BN462, ED25519, TOY63_P
 
 pytestmark = pytest.mark.cuda
 
@@ -537,10 +543,10 @@ def test_kernels_match_plain_twins(dev):
 
     # queue 3's fault 3: the fields outside the four main shapes take shapes
     # made on demand; K1 limb for limb and K8 / inverse mod p against the
-    # twins, the curve kernels (3b by a product) on one, and n = 63 refused
-    # by the curve entries with the limit named
+    # twins, and the curve kernels (3b by a product) on each, n = 63 among
+    # them
     for p in (EXAMPLE_FIELDS["secp256k1-fp"], EXAMPLE_FIELDS["goldilocks"],
-              EXAMPLE_FIELDS["babybear"], 97, next_prime((1 << 750) + 12345)):
+              EXAMPLE_FIELDS["babybear"], 97, TOY63_P):
         G = make_field(p)
         assert _build.field_shape(G) >= _build.DYN_ID_BASE
         a, b = _vals(G, dev, rng, WIDTH, (4 * p - 1, 1)), _vals(G, dev, rng, WIDTH, (2 * p - 1, 3))
@@ -550,16 +556,93 @@ def test_kernels_match_plain_twins(dev):
                            G.fully_reduce(G.exp_const_plain(a, p - 2))), p
         Wd = types.SimpleNamespace(F=G, b3_mont=123457 * G.R % p, b3_small=None,
                                    storage=cuda_curve.Storage(G.n))
-        if G.n <= _build.CURVE_MAX_LIMBS:
-            P1 = [_vals(G, dev, rng, WIDTH) for _ in range(3)]
-            P2 = [_vals(G, dev, rng, WIDTH) for _ in range(3)]
-            for got, want in ((cuda_curve.proj_add(Wd, *P1, *P2), cuda_curve.proj_add_plain(Wd, *P1, *P2)),
-                              (cuda_curve.proj_double_k(Wd, *P1, 2),
-                               cuda_curve.proj_double_k_plain(Wd, *P1, 2))):
-                assert all(torch.equal(G.fully_reduce(g), G.fully_reduce(w)) for g, w in zip(got, want))
-        else:
-            with pytest.raises(ValueError, match=str(_build.CURVE_MAX_LIMBS)):
-                cuda_curve.proj_double(Wd, a, a, a)
+        P1 = [_vals(G, dev, rng, WIDTH) for _ in range(3)]
+        P2 = [_vals(G, dev, rng, WIDTH) for _ in range(3)]
+        for got, want in ((cuda_curve.proj_add(Wd, *P1, *P2), cuda_curve.proj_add_plain(Wd, *P1, *P2)),
+                          (cuda_curve.proj_double_k(Wd, *P1, 2),
+                           cuda_curve.proj_double_k_plain(Wd, *P1, 2))):
+            assert all(torch.equal(G.fully_reduce(g), G.fully_reduce(w)) for g, w in zip(got, want))
+    _wide_checks(dev, rng)
+
+
+def _wide_checks(dev, rng):
+    """Queue 3's last kernels: K2 on BN462's scalar module (its own
+    library) bit for bit, K9 on its 39-limb scalars; every curve kernel on
+    limbs and on the PackedCodec rows of n = 39 (BN462's field, 15 rows) and
+    n = 63 (25 rows) at widths that cut a group, a warp and a block, and on
+    goldilocks's Fma51Codec rows, with K13 on each; BN462's MSM at N = 64 in
+    every mode and ed25519's in both, against the known logs."""
+    cv = Weierstrass.create(BN462)
+    S = cv.scalar
+    for width in (1, 1000, WIDTH):
+        s = cv.random_scalars(width, seed=width, device=dev)
+        s[:, :4] = torch.as_tensor(S.pack([0, 1, BN462.order - 1, BN462.order // 2]),
+                                   device=dev)[:, :width]
+        inf = torch.as_tensor(rng.integers(0, 2, size=2 * width, dtype=np.int32), device=dev)
+        for c in (8, 13, 22, cuda_scalar.MAX_C):
+            K = -(-(S.max_bits + 1) // c)
+            for mask in (None, inf):
+                got, want = glv_digits(S, s, c, K, mask), glv_digits_plain(S, s, c, K, mask)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), ("K2", width, c)
+            K9 = -(-(S.bits + 1) // c)
+            got, want = simple_digits(s, c, K9), signed_digits(s, c, K9, 12)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), ("K9", width, c)
+    gold = make_field(EXAMPLE_FIELDS["goldilocks"])
+    for G, codec in ((cv.ops.F, None), (cv.ops.F, PackedCodec(BN462.modulus)), (make_field(TOY63_P), None),
+                     (make_field(TOY63_P), PackedCodec(TOY63_P)), (gold, Fma51Codec(gold.p))):
+        st = cuda_curve.Storage(G.n) if codec is None else cuda_curve.Storage.of_codec(codec)
+        Wd = types.SimpleNamespace(F=G, b3_mont=15 * G.R % G.p, b3_small=15, storage=st)
+        enc = (lambda t: t) if codec is None else (lambda t: codec.from_digits(G, t))
+        err = ((lambda g, w: torch.equal(G.fully_reduce(g), G.fully_reduce(w))) if codec is None
+               else (lambda g, w: _rows_equal(G, codec, g, w)))
+        for width in GROUP_WIDTHS:
+            P1, P2 = ([enc(_vals(G, dev, rng, width, (2 * G.p - 1,))) for _ in range(3)]
+                      for _ in range(2))
+            f = [torch.as_tensor(rng.integers(0, 2, size=width, dtype=np.int32), device=dev)
+                 for _ in range(4)]
+            slots = (P1[0], P1[1], f[0], f[1], P2[0], P2[1], f[2], f[3])
+            for name, got, want, keep in (
+                ("K3", cuda_curve.aff_pair_add(Wd, *slots), cuda_curve.aff_pair_add_plain(Wd, *slots), None),
+                ("K4", cuda_curve.proj_add(Wd, *P1, *P2), cuda_curve.proj_add_plain(Wd, *P1, *P2), None),
+                ("K4m", cuda_curve.proj_add(Wd, *P1, *P2, mask=f[0]),
+                 cuda_curve.proj_add_plain(Wd, *P1, *P2, mask=f[0]), f[0] == 0),
+                ("K5", cuda_curve.proj_double_k(Wd, *P1, 5), cuda_curve.proj_double_k_plain(Wd, *P1, 5), None),
+                ("K6", cuda_curve.proj_double(Wd, *P1), cuda_curve.proj_double_plain(Wd, *P1), None),
+                ("K7", cuda_curve.proj_add_mixed(Wd, *P1, P2[0], P2[1], f[1]),
+                 cuda_curve.proj_add_mixed_plain(Wd, *P1, P2[0], P2[1], f[1]), f[1] == 1),
+            ):
+                assert all(err(g, w) for g, w in zip(got, want)), (G.n, codec, name, width)
+                if keep is not None:  # pass-through lanes: P1's rows bit for bit
+                    assert all(torch.equal(g[:, keep], a[:, keep]) for g, a in zip(got, P1)), name
+            if codec is not None:
+                assert _rows_equal(G, codec, cuda_codec.montmul_rows(G, codec, P1[0], P2[0]),
+                                   cuda_codec.montmul_rows_plain(G, codec, P1[0], P2[0])), (G.n, "K13")
+            elif G.n == 63:
+                E = types.SimpleNamespace(F=G, k_mont=12345 * G.R % G.p, two_mont=2 * G.R % G.p)
+                Q = [_vals(G, dev, rng, width) for _ in range(8)]
+                for got, want in ((cuda_edwards.ed_add(E, *Q, mask=f[0]), cuda_edwards.ed_add_plain(E, *Q, mask=f[0])),
+                                  (cuda_edwards.ed_double_k(E, *Q[:4], 3),
+                                   cuda_edwards.ed_double_k_plain(E, *Q[:4], 3)),
+                                  (cuda_edwards.ed_pair_add(E, Q[0], Q[1], f[0], f[1], Q[2], Q[3], f[2], f[3]),
+                                   cuda_edwards.ed_pair_add_plain(E, Q[0], Q[1], f[0], f[1], Q[2], Q[3], f[2], f[3]))):
+                    assert all(torch.equal(G.fully_reduce(g), G.fully_reduce(w)) for g, w in zip(got, want))
+
+    # the MSMs through the entry points: BN462 in every mode, ed25519 in both
+    N = 64
+    pts, logs = points_with_logs(BN462, N, seed=462)
+    s = cv.random_scalars(N, seed=462, device=dev)
+    want = expected_msm(BN462, S.unpack(s.cpu()), logs)
+    P = cv.points_from_ints(pts, dev)
+    for mode in ("projective", "packed", "affine", "halving"):
+        assert cv.result_to_int(cv.msm(s, P, mode=mode)) == want, mode
+    assert cv.result_to_int(cv.msm_unsafe(s, P, mode="packed")) == want
+    assert cv.result_to_int(cv.msm_projective(s, cv.ops.from_affine(P))) == want
+    ed = TwistedEdwards.create(ED25519)
+    epts, elogs = ed_points_with_logs(ED25519, N, seed=25519)
+    es = ed.random_scalars(N, seed=25519, device=dev)
+    ewant = ed_expected_msm(ED25519, ed.scalar.unpack(es.cpu()), elogs)
+    for mode in ("padded", "basic"):
+        assert ed.result_to_int(ed.msm(es, ed.points_from_ints(epts, dev), mode=mode)) == ewant, mode
 
 
 def test_mesh_two_ranks_on_one_card(dev):
