@@ -14,9 +14,13 @@ non-zero and no result line is printed):
 1. device: the card's name and power limit, and the kernel build
    (one ``nvcc`` per source into ``build/``, with the ptxas register,
    stack and spill lines, and each curve kernel's SASS instructions and
-   local loads/stores from ``cuobjdump -sass``); then the libraries of the
+   local loads/stores from ``cuobjdump -sass``; a ``[1 K10]`` line per K10
+   instance: registers, stack, spills, SASS size, none with a stack frame
+   or a spill); then the libraries of the
    shapes made on demand and of BN462's scalar module that phases 18 and
-   20 run start building in the background (one ``nvcc`` per source);
+   20 run start building in the background (one ``nvcc`` per source; their
+   ``[1 K10]`` lines print when phases 18 and 20 take them, n = 63's
+   without a stack frame or a spill);
 2. every kernel of every path against its plain PyTorch twin on the card,
    at the shapes the 2^16 MSMs give it (K2 and K9 bit-exact, the others
    exact mod p, the pass-through lanes of K4m, K7 and the masked K11 bit
@@ -29,7 +33,9 @@ non-zero and no result line is printed):
    flushed from the L2 before each call (as in the MSM, where it follows
    the slot gather); K4 over the main path's widths on limbs (450,560 down
    to 1 at 2^16); K7 on every storage at the affine reduction's and
-   ``random_points_fast``'s widths; the row's time is the instance the
+   ``random_points_fast``'s widths; K10 (G = 1, 2) at the padded path's
+   level-1 widths and at 131,072-524,288 lanes, cold as K3, the pick
+   also warm at the widest; the row's time is the instance the
    kernels' width table picks. K11 (one instance) runs at one block's
    points +- 1 and, timed, at the Edwards padded path's distinct widths,
    from 16,384 lanes up with its code flushed from the L2; masked (on no
@@ -117,9 +123,10 @@ non-zero and no result line is printed):
 18. every field ``make_field`` takes: K1 and K8 on the 11 example fields and
     on primes of n = 1 and n = 63 limbs (the shapes outside the main library
     built on demand, since phase 1), against the host and their twins; every
-    limb-storage curve kernel (K3-K7, K4m, K10-K12, the masked K11) on
-    goldilocks, babybear and secp256k1's base field against its twin; the
-    equivalence harness on the card.
+    limb-storage curve kernel (K3-K7, K4m, K10-K12, the masked K11; K10
+    every built instance, outputs below 2p) on goldilocks, babybear and
+    secp256k1's base field against its twin; the equivalence harness on the
+    card.
 19. the tools: ``run_msm`` on BLS12-377 at 2^16 (with its phase table) and
     2^20 (against the known logs) and on ed-on-bls12-377 at 2^16;
     ``field_benchmark``; ``evaluate_msm`` over c = 10..14 in turns (records
@@ -273,6 +280,39 @@ def _sass_sizes(bindir: Path, lib: Path) -> dict:
             for k, p in zip(names, plain)}
 
 
+def _k10_report(tag: str, info, bindir: Path, clean: bool = False, sizes=None) -> None:
+    """One line per K10 instance (G threads a point; 1: the one-thread
+    kernel) of a built library: registers, stack frame and spills from its
+    ptxas log, SASS instructions and local loads/stores (``sizes``: the
+    library's ``_sass_sizes``, read here when not given). Where ``clean``,
+    an instance with a stack frame or a spill fails the smoke."""
+    props, kern = {}, None
+    for line in info.log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kern = m.group(1) if "ed_pair_add" in m.group(1) else None
+            continue
+        f = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        r = re.search(r"Used (\d+) registers", line)
+        if kern and (f or r):
+            g = re.search(r"ILi(\d+)EE", kern)
+            props.setdefault(int(g.group(1)) if g else 1, {}).update(
+                dict(zip(("stack", "spill_st", "spill_ld"), map(int, f.groups()))) if f
+                else {"regs": int(r.group(1))})
+    for name, (count, local) in (sizes or _sass_sizes(bindir, info.path)).items():
+        if "ed_pair_add" in name:
+            g = re.search(r"<\(int\)(\d+)>", name)
+            props.setdefault(int(g.group(1)) if g else 1, {}).update(sass=count, local=local)
+    for g, pr in sorted(props.items()):
+        print(f"[1 K10] {tag}: G={g}: {pr.get('regs')} registers, {pr.get('stack')} B stack frame, "
+              f"{pr.get('spill_st')} B spill stores, {pr.get('spill_ld')} B spill loads; "
+              f"{pr.get('sass')} SASS instructions, {pr.get('local')} local loads/stores")
+        if clean and (pr.get("stack") or pr.get("spill_st") or pr.get("spill_ld") or pr.get("local")):
+            raise AssertionError(f"K10 G={g} on {tag} has a stack frame or spills: {pr}")
+    if not props:
+        raise AssertionError(f"no K10 instance in the library of {tag}")
+
+
 def main() -> None:
     import torch
     import torch.distributed as dist
@@ -339,8 +379,11 @@ def main() -> None:
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"    ptxas: {line.strip()}")
-    for name, (count, local) in _sass_sizes(Path(_build._nvcc()).resolve().parent, info.path).items():
+    bindir = Path(_build._nvcc()).resolve().parent
+    sizes = _sass_sizes(bindir, info.path)
+    for name, (count, local) in sizes.items():
         print(f"    sass: {count} instructions, {local} local loads/stores: {name}")
+    _k10_report("main library (Fp22)", info, bindir, clean=True, sizes=sizes)
     # the libraries of the shapes made on demand that phases 18 and 20 run, and
     # of BN462's scalar module: one nvcc per source, all started now, built in
     # the background while phases 2-17 keep the card busy
@@ -390,6 +433,12 @@ def main() -> None:
         if not all(torch.equal(G._sub_const_select(g, G.two_p_limbs), g) for g in got):
             raise AssertionError("curve kernel output at or above 2p")
         return mod_p_err(G, got, want)
+
+    def k10_err(E_, a, want):
+        """The worst curve_err of every built K10 instance (G threads a point)
+        on the slots a, against the twin's ``want``."""
+        return max(curve_err(E_.F, cuda_edwards._ed_pair_add(E_, g, *a), want)
+                   for g in cuda_edwards._k10_groups(E_))
 
     def rows_err(G, codec, got, want):
         """mod_p_err of codec rows, through their digit planes; every output
@@ -732,15 +781,40 @@ def main() -> None:
     print(f"[2 kernel] K9 simple_digits: bit-identical to the twin at c = {list(WIDE_CS)}, W = 1, "
           f"1000, {N}; c = {cuda_scalar.MAX_C + 1} refused before any launch ({refused})")
 
-    a10 = [field_elems(FE, lanes1e), field_elems(FE, lanes1e), flags(lanes1e), flags(lanes1e),
-           field_elems(FE, lanes1e), field_elems(FE, lanes1e), flags(lanes1e), flags(lanes1e)]
-    kernel_row("k10", "ed_pair_add", "K10", "edwards.cu",
-               "msm_zprize_tpu/curves/pallas_curve.py:449", ed_run, cuda_edwards.K10,
-               mod_p_err(FE, cuda_edwards.ed_pair_add(E, *a10), cuda_edwards.ed_pair_add_plain(E, *a10)),
-               _graph_ms(torch, lambda: cuda_edwards.ed_pair_add(E, *a10)),
-               _cuda_ms(torch, lambda: cuda_edwards.ed_pair_add_plain(E, *a10), PLAIN_REPS),
-               f"W={lanes1e}", (8 * n22 + 4) * 4 * lanes1e, 10 * mm8 * lanes1e)
-    del a10
+    # K10: every instance (G threads a point; 1: the one-thread kernel)
+    # against the twin and timed in turns, cold (as in the MSM: after the slot
+    # gather) at the main round's level 1 and the compact residual's; the
+    # row's time is the width table's pick. Every output below 2p. Then the
+    # instances at the widths between, where the table's G = 2 gives way to
+    # the one-thread kernel, and the pick's warm time (CUDA-graph replay, as
+    # PR 2-14 timed this row) beside the main width's cold one.
+    me = min(32, slot_count(N, Le))
+    wres_e = (me + (me & 1)) // 2 * min(2048, Ke * Le)
+
+    def k10_instances(width, a10):
+        return instances("K10 ed-on-bls12-377", f"W={width}", a10,
+                         lambda got, want: curve_err(FE, got, want),
+                         lambda G, a: cuda_edwards._ed_pair_add(E, G, *a),
+                         lambda a: cuda_edwards.ed_pair_add_plain(E, *a),
+                         cuda_edwards._k10_groups(E), cuda_edwards._k10_group_for(E, width), cold=True)
+
+    for width in (lanes1e, wres_e, 131_072, 262_144, 524_288):
+        a10 = [field_elems(FE, width, (2 * FE.p - 1,)), field_elems(FE, width, (2 * FE.p - 2,)),
+               flags(width), flags(width), field_elems(FE, width, (2 * FE.p - 2,)),
+               field_elems(FE, width, (2 * FE.p - 1,)), flags(width), flags(width)]
+        if width not in (lanes1e, wres_e):
+            err = k10_instances(width, a10)[0]
+            if err:
+                raise AssertionError(f"K10 disagrees with its plain twin at W={width}: max err {err}")
+            continue
+        kernel_row("k10", "ed_pair_add", "K10", "edwards.cu",
+                   "msm_zprize_tpu/curves/pallas_curve.py:449", ed_run, cuda_edwards.K10,
+                   *k10_instances(width, a10), f"W={width} (code flushed from the L2)",
+                   (8 * n22 + 4) * 4 * width, 10 * mm8 * width)
+        if width == lanes1e:
+            print(f"[2 instances] K10 ed-on-bls12-377 W={width}: the table's pick warm (CUDA-graph "
+                  f"replay) {_graph_ms(torch, lambda: cuda_edwards.ed_pair_add(E, *a10)):.4f} ms")
+        del a10
 
     # K11 (G = 4 threads a point) against the twin, unmasked and masked: at
     # one block's points +- 1 (32 points a block), untimed; then timed at the
@@ -1563,6 +1637,9 @@ def main() -> None:
 
     for s18, b in builds18.items():  # one line a kernel: registers, stack, spills
         ptxas_lines(f"shape {s18}", b.log)
+        # K10's instances; none may have a stack frame or a spill at n = 63
+        _k10_report(f"shape {s18} (n, NW) {_build.shape_layout(s18)[:2]}", b, bindir,
+                    clean=_build.shape_layout(s18)[0] == 63)
 
     def once_ms(fn):
         """CUDA-event ms of one fn() call, and its result."""
@@ -1670,9 +1747,11 @@ def main() -> None:
         launches_of(run_counts[run18], list(calls), run18)
         for key, (kern, plain, k, computing, keep) in calls.items():
             plain_ms, want = once_ms(plain)
-            # K3 and K10 as phase 2 holds them: mod p (their outputs need not be below 2p)
-            pair = key in (cuda_curve.K3, cuda_edwards.K10)
-            err = (mod_p_err if pair else curve_err)(G, gots[key], want)
+            # K3 as phase 2 holds it: mod p (its outputs need not be below 2p);
+            # K10 every built instance, below 2p
+            err = (mod_p_err if key == cuda_curve.K3 else curve_err)(G, gots[key], want)
+            if key == cuda_edwards.K10:
+                err = max(err, k10_err(E18, slots, want))
             if keep is not None:
                 off = keep[0] == 0
                 err = max(err, raw_err([g[:, off] for g in gots[key]], [a[:, off] for a in keep[1]]))
@@ -1775,6 +1854,7 @@ def main() -> None:
           f"{bsc.seconds:.1f} s ({bsc.path.name}); both built in the background since phase 1 "
           f"(n = 63, ed25519's and goldilocks's shapes: phase 18's libraries)")
     ptxas_lines(f"shape {sid39}", b39.log)
+    _k10_report(f"shape {sid39} (n, NW) {_build.shape_layout(sid39)[:2]}", b39, bindir)
     ptxas_lines("BN462 scalar module", bsc.log)
 
     # BN462: N = 8 and edge cases against both host oracles, then the other
@@ -1967,7 +2047,8 @@ def main() -> None:
                   else short.upper(), "edwards.cu", edw(line), runs[kernel], kernel, G, launch,
                   plain, f"W={width}{f', k={k}' if k else ''}, {n} rows",
                   curve_work(kernel, n, mm, width, k, computing), keep,
-                  (lambda g, w: mod_p_err(G, g, w)) if kernel == cuda_edwards.K10 else None)
+                  (lambda g, w, a=a: max(curve_err(G, g, w), k10_err(E, a, w)))
+                  if kernel == cuda_edwards.K10 else None)
             del a
 
     # n = 39, limbs: K1 (beta x), K2 and K3-K5 at the projective run's widths;
@@ -2101,7 +2182,8 @@ def main() -> None:
               f"msm_zprize_tpu/curves/pallas_curve.py:{line}", ed255_run, kernel, G25, launch, plain,
               f"W={width}{f', k={k}' if k else ''}, {n25} rows (9 words)",
               curve_work(kernel, n25, mm25, width, k),
-              err_of=(lambda g, w: mod_p_err(G25, g, w)) if kernel == cuda_edwards.K10 else None)
+              err_of=(lambda g, w, a=a: max(curve_err(G25, g, w), k10_err(e25, a, w)))
+              if kernel == cuda_edwards.K10 else None)
         del a
 
     # n = 63 (24 words): points of y^2 = x^3 + 7, 1,024 made on the host,

@@ -64,7 +64,9 @@ _ENTRIES = {
     "msm_curve": [_P, _P, _W, _I, _I, _I, _I, _I, _P, _P],
     "msm_curve_group": [_I, _I, _I, _W, _I],
     "msm_curve_groups": [_I, _I, _I, _I, _P, _I],
-    "msm_ed_pair_add": [_P, _P, _W, _I, _P, _P],
+    "msm_ed_pair_add": [_P, _P, _W, _I, _I, _P, _P],
+    "msm_ed_pair_add_group": [_I, _W],
+    "msm_ed_pair_add_groups": [_I, _P, _I],
     "msm_ed_add": [_P, _P, _W, _I, _I, _P, _P],
     "msm_ed_double_k": [_P, _P, _W, _I, _I, _P, _P],
     "msm_field_const_words": [_I],

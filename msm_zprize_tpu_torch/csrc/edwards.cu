@@ -1,6 +1,7 @@
 // K10, K11, K12: twisted-Edwards (a = -1) extended-coordinate formulas on
-// (22, W) limb tensors in Montgomery form: K10 one lane per thread, K11 and
-// K12 G = 4 threads a point (the group design).
+// (22, W) limb tensors in Montgomery form (any n on a shape made on
+// demand), G threads a point (the group design, group.cuh); K10 also one
+// thread a lane where its width table picks it.
 //
 // Replace the formula bodies of msm_zprize_tpu/curves/pallas_curve.py's
 // EdwardsKernels (one pallas_call each through _curve_call):
@@ -28,10 +29,29 @@
 // between doublings for the same reason (pallas_curve.py:486-488) but has
 // no check that the relaxed value meets the storage bound.
 //
-// What bounds them on an H100: K10 runs wide (942,080 lanes at 2^16), bound
-// by 32-bit integer multiply-add throughput, register pressure and the 8 +
-// 4 + 4 operand rows it moves; it keeps the plain design, one thread per
-// lane, 128-thread blocks. K11 runs from 765,463 lanes down to 1 (the tree,
+// What bounds them on an H100. K10 runs wide and once a round: 942,080
+// lanes and the compact residual's 32,768 at 2^16 (983,040 and 32,768 on
+// ed25519's 9 words). Its bound is bytes (8 limb rows in, 8 out, 4 flags:
+// 0.2025 ms at 942,080 lanes) with the ten products' multiply-adds just
+// below it; what it hits is instruction issue of those products. One
+// thread a lane walked the ten products one after another (108 registers
+// and 6.3k SASS instructions on 8 words; 148 on 9 words; at n = 63 255
+// registers, a 280 B stack and 576 B spilled): 56 % of its bound on
+// ed-on-bls12-377, 45 % on ed25519, 15 % at n = 39 and 63. The group design
+// (ed_pair_add_group_kernel) splits the products among G threads of a warp
+// in rounds that wait on the formula's four dependent products (x y, T1
+// T2, C, X3) and no more: G = 2 keeps every thread busy in five rounds, G =
+// 4 takes four, 10 products in 16 thread-slots (47 and 42 registers, 3.9k
+// and 3.3k SASS instructions on 8 words; n = 63 128 registers, no stack
+// frame, no spill). Wide, time follows the warp-rounds a point takes (5 /
+// 16 at G = 2, as the one-thread kernel's 10 / 32; 4 / 8 at G = 4, 1.5x
+// slower), so k10_group (below) keeps the one-thread kernel at Fp22's
+// widest launch and on shapes made on demand of up to 8 words (short
+// products), G = 2 below it on Fp22 and on the shapes made on demand where
+// it fits, G = 4 where shared memory rules (above 18 words). Keeping blocks
+// resident and bringing each next tile's limbs into shared memory by
+// cp.async under the products ran slower at every width that matters
+// (PERF.md): the staging buffer halves the blocks an SM holds. K11 runs from 765,463 lanes down to 1 (the tree,
 // the sub-rounds' 23,552 lanes 19 times, reduce_buckets_log down to 23, 22
 // Horner adds on one lane). One thread a lane (126 registers, 6.5k SASS
 // instructions) walked hwcd-3's 9 products one after another, ~9 us a
@@ -79,10 +99,14 @@ __device__ __forceinline__ void hwcd3_tail(const Fe& A, const Fe& B, const Fe& C
 }
 
 // ---- K10: fused level-1 pair add of two signed affine slots -----------------
+// One thread a lane: the plain design, G = 1 (a template, so that only a
+// library whose table picks it builds it).
 // ops: x1 y1 s1 v1 x2 y2 s2 v2 X3 Y3 Z3 T3
+template <int G>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 ed_pair_add_kernel(const __grid_constant__ Operands ops, int64_t W,
                    const __grid_constant__ FieldConsts fc) {
+  static_assert(G == 1, "the one-thread kernel");
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= W) return;
   const bool v1 = load_flag(ops, 3, lane), v2 = load_flag(ops, 7, lane);
@@ -108,6 +132,117 @@ ed_pair_add_kernel(const __grid_constant__ Operands ops, int64_t W,
   store_out(ops, 10, lane, Z3);
   store_out(ops, 11, lane, T3);
 }
+
+// K10 as rounds of products of a group (group.cuh), G = 2 or 4 threads a
+// point. The block stages k R and D = 2R to slots 0, 1 and x1, y1, x2, y2 to
+// 2-5, each with its sign and valid flag applied (the identity (0, 1) on
+// an invalid slot, the sign negating x: K3's staging, aff_pair_add_group_kernel).
+// hwcd3_unitz's ten products, T1 = x1 y1, T2 = x2 y2, A = (y1 - x1)(y2 - x2),
+// B = (y1 + x1)(y2 + x2), TT = T1 T2, C = TT (k R), X3 = (B - A)(D - C),
+// Y3 = (D + C)(B + A), Z3 = (D - C)(D + C), T3 = (B - A)(B + A), wait on
+// four dependent products (x y, T1 T2, C, X3: C = k x1 y1 x2 y2 has five
+// factors, so three levels, and X3, Y3, Z3 take C), and T3 needs only A and
+// B. The rounds, one product a thread at most (each operand's sum or
+// difference formed by the thread that takes the product; every value
+// < 2p; a round reads no slot that it writes, and the warp syncs between
+// rounds):
+//   G = 4: {T1 T2 A B} -> 6-9, {TT T3} -> 2-3, {C} -> 4, {X3 Y3 Z3} -> 5-7:
+//          four rounds, the critical path, 10 of 16 thread-products busy;
+//   G = 2: {T1 T2} -> 6-7, {TT A} -> 8-9, {C B} -> 6-7, {X3 Y3} -> 2-3,
+//          {Z3 T3} -> 4-5: five rounds, every thread busy in each (ten
+//          products on two threads take five; B waits for the round C
+//          takes, as the chain x y, T1 T2, C allows).
+// The outputs are hwcd3's values, equal mod p to the one-thread kernel's
+// and the twin's (which takes C as (T1 k R) T2).
+// ops: x1 y1 s1 v1 x2 y2 s2 v2 X3 Y3 Z3 T3
+constexpr int K10_SLOTS = 10;
+
+template <int G>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+ed_pair_add_group_kernel(const __grid_constant__ Operands ops, int64_t W,
+                         const __grid_constant__ FieldConsts fc) {
+  static_assert(G == 2 || G == 4, "K10's rounds are laid out for G = 2 and G = 4");
+  using Gr = Group<G>;
+  constexpr int P = Gr::POINTS, ST = Gr::STRIDE;
+  __shared__ uint32_t sh[K10_SLOTS * S::NW * ST];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * P;
+  const int n = static_cast<int>(W - base < P ? W - base : P);  // this block's points
+  const Fe zero = fe_zero<S>(), one = fe_from<S>(fc.one);
+  for (int i = threadIdx.x; i < 4 * P; i += BLOCK_THREADS) {
+    const int c = i / P, pt = i % P;  // c: x1 y1 x2 y2
+    if (pt >= n) continue;
+    const int side = 4 * (c >> 1);
+    const bool is_y = c & 1;
+    const bool v = load_flag(ops, side + 3, base + pt), s = load_flag(ops, side + 2, base + pt);
+    const Fe a = load_reduced(ops, side + is_y, base + pt, fc);
+    // the identity (0, 1) on an invalid slot, before any arithmetic
+    sh_put<S, ST>(sh, 2 + c, pt, is_y ? fe_select(v, a, one) : fe_select(v, f_cneg(a, s, fc), zero));
+  }
+  for (int pt = threadIdx.x; pt < n; pt += BLOCK_THREADS) {
+    sh_put<S, ST>(sh, 0, pt, fe_from<S>(fc.curve[0]));
+    sh_put<S, ST>(sh, 1, pt, fe_from<S>(fc.curve[1]));
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, grp = lane / G, rank = lane % G;
+  const int pt = (threadIdx.x >> 5) * Gr::PER_WARP + grp;
+  const bool active = grp < Gr::PER_WARP && pt < n;
+  // each round's table: operands (a +- a2)(b +- b2), a difference where bit
+  // j of sa (sb) is set, product j into slot out + j
+  constexpr int N_ = NONE;
+  if constexpr (G == 4) {
+    group_products<S, G, true>(sh, active, pt, rank, 4, nibbles(2, 4, 3, 3),
+                               nibbles(N_, N_, 2, 2), 0b0100, nibbles(3, 5, 5, 5),
+                               nibbles(N_, N_, 4, 4), 0b0100, 6, fc);
+    group_products<S, G, true>(sh, active, pt, rank, 2, nibbles(6, 9), nibbles(N_, 8), 0b10,
+                               nibbles(7, 9), nibbles(N_, 8), 0, 2, fc);
+    group_products<S, G, false>(sh, active, pt, rank, 1, nibbles(2), nibbles(N_), 0, nibbles(0),
+                                nibbles(N_), 0, 4, fc);
+    group_products<S, G, true>(sh, active, pt, rank, 3, nibbles(9, 1, 1), nibbles(8, 4, 4), 0b101,
+                               nibbles(1, 9, 1), nibbles(4, 8, 4), 0b001, 5, fc);
+  } else {
+    group_products<S, G, false>(sh, active, pt, rank, 2, nibbles(2, 4), nibbles(N_, N_), 0,
+                                nibbles(3, 5), nibbles(N_, N_), 0, 6, fc);
+    group_products<S, G, true>(sh, active, pt, rank, 2, nibbles(6, 3), nibbles(N_, 2), 0b10,
+                               nibbles(7, 5), nibbles(N_, 4), 0b10, 8, fc);
+    group_products<S, G, true>(sh, active, pt, rank, 2, nibbles(8, 3), nibbles(N_, 2), 0,
+                               nibbles(0, 5), nibbles(N_, 4), 0, 6, fc);
+    group_products<S, G, true>(sh, active, pt, rank, 2, nibbles(7, 1), nibbles(9, 6), 0b01,
+                               nibbles(1, 7), nibbles(6, 9), 0b01, 2, fc);
+    group_products<S, G, true>(sh, active, pt, rank, 2, nibbles(1, 7), nibbles(6, 9), 0b11,
+                               nibbles(1, 7), nibbles(6, 9), 0, 4, fc);
+  }
+  __syncthreads();
+  // X3 Y3 Z3 T3's slots
+  constexpr uint32_t out = G == 4 ? nibbles(5, 6, 7, 3) : nibbles(2, 3, 4, 5);
+  for (int i = threadIdx.x; i < 4 * P; i += BLOCK_THREADS) {
+    const int c = i / P, q = i % P;
+    if (q < n) store_out(ops, 8 + c, base + q, sh_get<S, ST>(sh, nib(out, c), q));
+  }
+}
+
+// K10's G, the threads a point, at width W (1: the one-thread kernel): a
+// fixed table from chip_smoke.py's timings of every instance in turns at
+// the padded path's widths, with their code flushed from the L2 (as in the
+// MSM, after the slot gather), and alone and in the padded MSM with each
+// instance forced (PERF.md keeps the numbers, G = 4 on Fp22 among them). On
+// Fp22, G = 2 up to 262,144 lanes (five rounds, no thread idle: the
+// residual's 32,768 lanes), then the one-thread kernel (its ten products
+// inline; the main round's 942,080 lanes). A shape made on demand takes
+// one instance: the one-thread kernel up to 8 words (on 2-3 words one
+// thread's products are short and G = 2 ran 40-63 % slower), G = 2 where a
+// block's 10 slots fit the 48 KB of static shared memory at 64 points (up
+// to 18 words), else G = 4 (32 points, 31,680 B at 24 words).
+constexpr bool k10_fits(int G) {
+  return K10_SLOTS * S::NW * (32 / G * (BLOCK_THREADS / 32) + 1) * 4 <= 48 * 1024;
+}
+constexpr int K10_DYN_GROUP = S::NW <= 8 ? 1 : k10_fits(2) ? 2 : 4;
+int k10_group(int64_t W) {
+  if constexpr (S::DYN) return K10_DYN_GROUP;
+  return W <= 262144 ? 2 : 1;
+}
+// The instances built: exactly the ones k10_group picks.
+using K10Groups = std::conditional_t<S::DYN, std::integer_sequence<int, K10_DYN_GROUP>,
+                                     std::integer_sequence<int, 1, 2>>;
 
 // ---- K11: unified extended add, optionally masked, G threads a point ---------
 // hwcd-3 on two points as three levels of products (group.cuh), K12's
@@ -248,14 +383,39 @@ constexpr int K12_GROUP = 4;
 // Each entry point takes a field shape's ID (field.cuh) and refuses any but
 // S's (Fp22, or the DynShape of a library made on demand), and field
 // constants that do not fit it (a Pallas field: n = 22 too).
+// group: 0 for the instance k10_group picks at width W, else the G of a
+// built instance (the smoke's and the card test's comparison of every
+// instance); refuses one that is not built.
 extern "C" int msm_ed_pair_add(const uint64_t* ptrs, const int64_t* lds, int64_t W, int shape,
-                               const uint32_t* consts, void* stream) {
+                               int group, const uint32_t* consts, void* stream) {
   using namespace msm;
   using namespace msm::ed;
   if (shape != S::ID || !fits<S>(consts)) return static_cast<int>(cudaErrorInvalidValue);
-  ed_pair_add_kernel<<<grid_for(W), BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      operands_from_host(ptrs, lds, 12), W, field_consts_from_host<S>(consts));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto fc = field_consts_from_host<S>(consts);
+  const Operands ops = operands_from_host(ptrs, lds, 12);
+  const bool built = with_group(K10Groups{}, group > 0 ? group : k10_group(W), [&](auto G) {
+    constexpr int g = decltype(G)::value;
+    if constexpr (g == 1) {
+      ed_pair_add_kernel<g><<<grid_for(W), BLOCK_THREADS, 0, s>>>(ops, W, fc);
+    } else {
+      ed_pair_add_group_kernel<g><<<Group<g>::grid(W), BLOCK_THREADS, 0, s>>>(ops, W, fc);
+    }
+  });
+  if (!built) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The G of the instance msm_ed_pair_add launches at width W when group is
+// 0; -1 for another shape than the library's.
+extern "C" int msm_ed_pair_add_group(int shape, int64_t W) {
+  return shape == msm::ed::S::ID ? msm::ed::k10_group(W) : -1;
+}
+
+// The Gs of K10's built instances into out[0, cap); returns how many there
+// are, -1 for another shape than the library's.
+extern "C" int msm_ed_pair_add_groups(int shape, int* out, int cap) {
+  return shape == msm::ed::S::ID ? msm::list_groups(msm::ed::K10Groups{}, out, cap) : -1;
 }
 
 // masked != 0: ptrs/lds hold the mask (a per-lane flag) after the 8 inputs.

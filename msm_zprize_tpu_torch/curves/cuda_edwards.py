@@ -19,6 +19,8 @@ one batch shape, flags ``(*batch,)`` integer or bool tensors.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
@@ -92,6 +94,14 @@ def _launch(E, name, entry, ins, lds, width, batch, extra=(), k=0):
 def ed_pair_add(E, x1, y1, s1, v1, x2, y2, s2, v2):
     """K10: operand i is the affine point ((-1)^s_i x_i, y_i) where v_i != 0,
     else the identity; x_i, y_i raw affine coordinates. Returns (X, Y, Z, T)."""
+    return _ed_pair_add(E, 0, x1, y1, s1, v1, x2, y2, s2, v2)
+
+
+def _ed_pair_add(E, group, x1, y1, s1, v1, x2, y2, s2, v2):
+    """``ed_pair_add`` on the instance with G = ``group`` threads a point
+    (one of ``_k10_groups``; 0: the one the width table picks, as
+    ``ed_pair_add`` does). For comparing the instances on the card; the
+    engines call ``ed_pair_add``."""
     if _build.on_cpu(x1, y1, s1, v1, x2, y2, s2, v2):
         return ed_pair_add_plain(E, x1, y1, s1, v1, x2, y2, s2, v2)
     batch = x1.shape[1:]
@@ -99,7 +109,27 @@ def ed_pair_add(E, x1, y1, s1, v1, x2, y2, s2, v2):
     fl = flag_rows((s1, v1, s2, v2), width)
     ins = (fx1, fy1, fl[0], fl[1], fx2, fy2, fl[2], fl[3])
     lds = [lds[0], lds[1], 0, 0, lds[2], lds[3], 0, 0]
-    return _launch(E, K10, "msm_ed_pair_add", ins, lds, width, batch)
+    return _launch(E, K10, "msm_ed_pair_add", ins, lds, width, batch, extra=(group,))
+
+
+def _k10_group_for(E, width: int) -> int:
+    """G, the threads a point, of the K10 instance that ``ed_pair_add``
+    launches at ``width`` lanes on E's field: the kernels' own table
+    (``csrc/edwards.cu::k10_group``)."""
+    shape = _build.field_shape(E.F)
+    lib, _ = _build.library(shape)
+    return lib.msm_ed_pair_add_group(shape, width)
+
+
+def _k10_groups(E) -> tuple[int, ...]:
+    """The Gs of K10's instances built on E's field, as the kernels' library
+    lists them (``csrc/edwards.cu::K10Groups``)."""
+    shape, out = _build.field_shape(E.F), (ctypes.c_int * 8)()
+    lib, _ = _build.library(shape)
+    count = lib.msm_ed_pair_add_groups(shape, out, 8)
+    if not 0 < count <= 8:
+        raise RuntimeError(f"K10: the library lists {count} instances on field shape {shape}")
+    return tuple(out[:count])
 
 
 def ed_add(E, X1, Y1, Z1, T1, X2, Y2, Z2, T2, mask=None):

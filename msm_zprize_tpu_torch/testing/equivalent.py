@@ -6,8 +6,10 @@ required to throw together.
 Mirror of ``msm_zprize_tpu/testing/equivalent.py``: ``Spec``, ``id_spec``,
 ``field_spec`` (ints <-> (n, batch) Montgomery limb tensors) and
 ``scalar_spec`` (ints <-> plain scalar limbs), and ``equivalent``. The
-port's specs build torch tensors on ``device``: ``"cpu"`` runs the plain
-twins, ``"cuda"`` the kernels (K1 and K8 through ``MontgomeryFp``).
+port's specs build torch tensors on ``device``, by default the card
+(``parallel/api.py``'s ``DEVICE``, as the JAX harness places its values on
+the default accelerator): ``"cuda"`` runs the kernels (K1 and K8 through
+``MontgomeryFp``), ``"cpu"`` the plain twins.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..parallel.api import DEVICE
 from .property import MAX_RUNS, MIN_RUNS, test_property
 from .random_gen import Random
 
@@ -40,7 +43,7 @@ def _same_lanes(vals):
 
 
 def field_spec(F, rng: Random | None = None, montgomery: bool = True, batch: int = 1,
-               device="cpu") -> Spec:
+               device=DEVICE) -> Spec:
     """Values cross as (n, batch) limb tensors on ``device``, every lane the
     same value (a batched implementation must be exact in every lane)."""
 
@@ -50,7 +53,7 @@ def field_spec(F, rng: Random | None = None, montgomery: bool = True, batch: int
     return Spec(rng, there, lambda arr: _same_lanes(F.unpack(arr, montgomery=montgomery)))
 
 
-def scalar_spec(S, rng: Random | None = None, batch: int = 1, device="cpu") -> Spec:
+def scalar_spec(S, rng: Random | None = None, batch: int = 1, device=DEVICE) -> Spec:
     def there(v: int):
         return torch.as_tensor(S.pack([v] * batch), device=device)
 

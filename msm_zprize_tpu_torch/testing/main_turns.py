@@ -1,14 +1,16 @@
-"""The main library against another tree's: K1, K3 and K4 on BLS12-377 at
-their 2^16 MSM shapes, timed on the card, and the SASS of two built
-libraries compared kernel by kernel.
+"""The main library against another tree's: K1, K3 and K4 on BLS12-377 and
+K10 on ed-on-bls12-377 at their 2^16 MSM shapes, timed on the card, and the
+SASS of two built libraries compared kernel by kernel.
 
     python3 -m msm_zprize_tpu_torch.testing.main_turns          (from a tree's root)
     python3 -m msm_zprize_tpu_torch.testing.main_turns --sass A.so B.so
 
 The first form builds (or reuses) the tree's main library and times, through
 the wrappers every tree since PR 13 has, K1 at (32, 65,536), K3 at 901,120
-lanes (its code flushed from the L2 before each call, as in the MSM) and K4
-at 450,560 lanes: the card's own time, CUDA-graph replay, two readings each.
+lanes (its code flushed from the L2 before each call, as in the MSM), K4
+at 450,560 lanes and K10 at the padded MSM's 942,080 and 32,768 lanes (cold,
+as K3: both follow the slot gather): the card's own time, CUDA-graph replay,
+two readings each.
 It prints one JSON line with the times, the library's path and the card's
 name and power limit, so one command can run a parent's tree and this one in
 turns (copy this file into the parent's tree). The second form prints, for
@@ -65,21 +67,22 @@ def turns() -> None:
 
     from chip_smoke import _cold_ms, _graph_ms, _smi  # the tree's root is on the path under -m
 
-    from ..curves import cuda_curve
-    from ..curves.params import BLS12_377
+    from ..curves import cuda_curve, cuda_edwards
+    from ..curves.params import BLS12_377, ED_ON_BLS12_377
     from ..fields import cuda_mul
-    from ..parallel.api import Weierstrass
+    from ..parallel.api import TwistedEdwards, Weierstrass
 
     if not torch.cuda.is_available():
         raise SystemExit("main_turns: needs a CUDA device")
     dev = torch.device("cuda", 0)
     W = Weierstrass.create(BLS12_377).ops
+    E = TwistedEdwards.create(ED_ON_BLS12_377).ops
     F = W.F
     rng = np.random.default_rng(2026)
 
-    def elems(width):
-        limbs = rng.integers(0, 1 << 12, size=(F.n, width), dtype=np.int32)
-        limbs[-1] &= (1 << (F.p.bit_length() - 1 - 12 * (F.n - 1))) - 1  # below p
+    def elems(width, G=F):
+        limbs = rng.integers(0, 1 << 12, size=(G.n, width), dtype=np.int32)
+        limbs[-1] &= (1 << (G.p.bit_length() - 1 - 12 * (G.n - 1))) - 1  # below p
         return torch.as_tensor(limbs, device=dev)
 
     def bits(width):
@@ -89,12 +92,17 @@ def turns() -> None:
     k3 = [elems(901_120), elems(901_120), bits(901_120), bits(901_120),
           elems(901_120), elems(901_120), bits(901_120), bits(901_120)]
     k4 = [elems(450_560) for _ in range(6)]
+    k10 = {w: [elems(w, E.F), elems(w, E.F), bits(w), bits(w), elems(w, E.F), elems(w, E.F), bits(w),
+               bits(w)] for w in (942_080, 32_768)}
     res = {"card": _smi("name,power.limit"), "library": str(_build.library()[1].path)}
     for _ in range(2):
         res.setdefault("k1_32x65536", []).append(_graph_ms(torch, lambda: cuda_mul.montmul(F, x, y)))
         res.setdefault("k3_901120", []).append(
             _cold_ms(torch, lambda: cuda_curve.aff_pair_add(W, *k3), k3))
         res.setdefault("k4_450560", []).append(_graph_ms(torch, lambda: cuda_curve.proj_add(W, *k4)))
+        for w, a in k10.items():
+            res.setdefault(f"k10_{w}", []).append(
+                _cold_ms(torch, lambda a=a: cuda_edwards.ed_pair_add(E, *a), a))
     print(json.dumps(res), flush=True)
 
 

@@ -129,6 +129,8 @@ GROUP_WIDTHS = (1, 5, 33, 4097)  # cut a group, a warp, a block of every G
 K3_MAIN = 901_120  # K3's main-round width in the 2^16 MSMs
 K7_AFFINE, K7_POINTS = 704, 65_536  # K7's widths: the affine reduction, random_points_fast
 K11_PATH = (23, 736, 23_552, 471_040)  # K11's widths on the Edwards padded path at 2^16
+K10_PATH = (32_768, 942_080)  # K10's widths there: the residual's level 1, the main round's
+K10_ED25519 = (32_768, 983_040)  # and on ed25519's padded path
 
 
 def _below_2p(F, g):
@@ -286,6 +288,35 @@ def _k11_checks(E, a, m, strided):
 def _tile(x, width):
     """x's lanes repeated to ``width`` lanes."""
     return x.repeat(*([1] * (x.dim() - 1)), -(-width // x.shape[-1]))[..., :width].contiguous()
+
+
+def _k10_checks(E, dev, rng, path_widths, label):
+    """Every built K10 instance (G threads a point, as
+    ``cuda_edwards._k10_groups`` reads them from the library; 1: the
+    one-thread kernel) against the twin at W = 1, one block's points +- 1 of
+    each instance, WIDTH and the padded path's widths, the first lanes
+    invalid on either side or both and negated: equal mod p, every output
+    below 2p; the width table picks every built instance and no other."""
+    G = E.F
+    built = cuda_edwards._k10_groups(E)
+    x = [_vals(G, dev, rng, WIDTH, (2 * G.p - 1, 2 * G.p - 2, 0, 1)) for _ in range(4)]
+    f = [torch.as_tensor(rng.integers(0, 2, size=WIDTH, dtype=np.int32), device=dev) for _ in range(4)]
+    f[1][:4] = torch.tensor([0, 1, 0, 1], dtype=f[1].dtype)
+    f[3][:4] = torch.tensor([0, 0, 1, 1], dtype=f[3].dtype)
+    f[0][:4] = f[2][:4] = 1
+    slots = (x[0], x[1], f[0], f[1], x[2], x[3], f[2], f[3])
+    widths = {1, WIDTH, *path_widths} | {_block_points(g) + d for g in built for d in (-1, 0, 1)}
+    for width in sorted(widths):
+        ops = [_tile(t, width) for t in slots]
+        want = cuda_edwards.ed_pair_add_plain(E, *ops)
+        assert cuda_edwards._k10_group_for(E, width) in built, (label, width)
+        for g in built:
+            got = cuda_edwards._ed_pair_add(E, g, *ops)
+            assert all(torch.equal(G.fully_reduce(a), G.fully_reduce(b)) and _below_2p(G, a)
+                       for a, b in zip(got, want)), (label, "K10", g, width)
+    picked = {cuda_edwards._k10_group_for(E, w) for e in range(21)
+              for w in (max(1, (1 << e) - 1), 1 << e, (1 << e) + 1, *path_widths)}
+    assert picked == set(built), (label, picked, built)
 
 
 K6_WIDTHS = (1, 256, 1000)  # K6 (K5's group instance at k = 1): a lane, the subgroup check's width
@@ -492,6 +523,7 @@ def test_kernels_match_plain_twins(dev):
         for g, w in zip(got, want):
             assert torch.equal(FE.fully_reduce(g), FE.fully_reduce(w)), name
     _k11_checks(E, a, m, (slot[:, :WIDTH], *a[1:4], slot[:, WIDTH:], *a[5:]))
+    _k10_checks(E, dev, rng, K10_PATH, "ed-on-bls12-377")
     # K12 (G = 4 threads a point) at its MSM widths and k's, every output
     # below 2p
     for width in (1, 23):
@@ -638,6 +670,7 @@ def _wide_checks(dev, rng):
     assert cv.result_to_int(cv.msm_unsafe(s, P, mode="packed")) == want
     assert cv.result_to_int(cv.msm_projective(s, cv.ops.from_affine(P))) == want
     ed = TwistedEdwards.create(ED25519)
+    _k10_checks(ed.ops, dev, rng, K10_ED25519, "ed25519")
     epts, elogs = ed_points_with_logs(ED25519, N, seed=25519)
     es = ed.random_scalars(N, seed=25519, device=dev)
     ewant = ed_expected_msm(ED25519, ed.scalar.unpack(es.cpu()), elogs)

@@ -25,6 +25,7 @@ The CUDA kernels themselves run on the card in ``tests/test_torch_cuda.py``.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -354,6 +355,58 @@ def test_simple_digits_twin_matches_tpu_kernel():
         assert not got[1].numpy()[got[0].numpy() == 0].any()
 
 
+def _k10_rounds():
+    """K10's group rounds as ``csrc/edwards.cu::ed_pair_add_group_kernel``
+    lays them out: {G: ([(sums, np, a, a2, sa, b, b2, sb, out), ...], the
+    slots of X3 Y3 Z3 T3)}, read from its ``group_products`` calls."""
+    src = (_build.CSRC / "edwards.cu").read_text()
+    body = src[src.index("ed_pair_add_group_kernel(const"):]
+    body = body[:body.index("\n}\n")]
+    nib = lambda t: [15 if v.strip() == "N_" else int(v) for v in t.split(",")]
+    call = re.compile(
+        r"group_products<S, G, (true|false)>\(sh, active, pt, rank, (\d+), nibbles\(([^)]*)\),"
+        r"\s*nibbles\(([^)]*)\), (0b[01]+|0),\s*nibbles\(([^)]*)\),\s*nibbles\(([^)]*)\), "
+        r"(0b[01]+|0), (\d+), fc\)")
+    outs = re.search(r"G == 4 \? nibbles\(([^)]*)\) : nibbles\(([^)]*)\)", body)
+    rounds = {}
+    for G, part, out in zip((4, 2), body.split("} else {"), outs.groups()):
+        rounds[G] = ([(m[0] == "true", int(m[1]), nib(m[2]), nib(m[3]), int(m[4], 0), nib(m[5]),
+                       nib(m[6]), int(m[7], 0), int(m[8])) for m in call.findall(part)], nib(out))
+    assert [len(r) for r, _ in rounds.values()] == [4, 5], rounds
+    return rounds
+
+
+def _k10_replay(E, G, rounds, out, x1, y1, s1, v1, x2, y2, s2, v2):
+    """K10's group rounds replayed on torch field ops: the kernel's staging
+    (slots 0, 1 k R and 2R; 2-5 x1 y1 x2 y2, an invalid slot the identity,
+    the sign negating x), then each round's products (a +- a2)(b +- b2) into
+    slots out + j, at most G a round, reading no slot the round writes,
+    every value below 2p. Returns the slots of X3, Y3, Z3, T3."""
+    F = E.F
+    below_2p = lambda t: torch.equal(F._sub_const_select(t, F.two_p_limbs), t)
+    zero, one = torch.zeros_like(x1), F.ones_mont(*x1.shape[1:], device=x1.device)
+    stage = lambda x, y, s, v: (torch.where(v.bool(), torch.where(s.bool(), F.sub(zero, x), x), zero),
+                                torch.where(v.bool(), y, one))
+    sh = dict(enumerate((F.const(E.k_mont, x1), F.const(E.two_mont, x1),
+                         *stage(x1, y1, s1, v1), *stage(x2, y2, s2, v2))))
+    for sums, np_, a, a2, sa, b, b2, sb, o in rounds:
+        assert np_ <= G
+
+        def operand(t, u, sub, j):
+            v = sh[t[j]]
+            if sums and u[j] != 15:
+                v = (F.sub if sub >> j & 1 else F.add)(v, sh[u[j]])
+            assert below_2p(v)
+            return v
+
+        new = {o + j: F.montmul_plain(operand(a, a2, sa, j), operand(b, b2, sb, j)) for j in range(np_)}
+        read = {t[j] for t in (a, b) for j in range(np_)}
+        read |= {t[j] for t in (a2, b2) for j in range(np_) if sums and t[j] != 15}
+        assert not read & new.keys() and all(map(below_2p, new.values()))
+        sh.update(new)
+    return tuple(sh[slot] for slot in out)
+
+
 def test_edwards_twins_match_jax(ed_ops):
     """K10-K12's twins and the curve ops against JAX EdwardsOps and
     EdwardsKernels(interpret=True), mod p; the port's parameters, host
@@ -394,6 +447,11 @@ def test_edwards_twins_match_jax(ed_ops):
     }
     for name, (got, want) in cases.items():
         assert [F.unpack(g) for g in got] == [F.unpack(np.asarray(w)) for w in want], name
+    # K10's group rounds (csrc/edwards.cu, G = 4 and 2) on the same slots,
+    # invalid and negated ones among them, against the twin mod p
+    twin = [F.unpack(g) for g in cuda_edwards.ed_pair_add_plain(E, *taff)]
+    for G, (rounds, out) in _k10_rounds().items():
+        assert [F.unpack(g) for g in _k10_replay(E, G, rounds, out, *taff)] == twin, G
     assert E.is_on_curve(ExtPoints(*ta)).tolist() == np.asarray(j[5]).tolist() == [True] * B
     assert E.eq(ExtPoints(*ta), ExtPoints(*tb)).tolist() == np.asarray(j[6]).tolist()
     C = EdwardsCurve(ED_ON_BLS12_377)
